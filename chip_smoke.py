@@ -6,15 +6,21 @@ Run from the root of the repository on a machine with one NVIDIA card:
     python3 chip_smoke.py [--seed 0]
 
 It builds the port's CUDA kernel with nvcc, holds it against its plain
-PyTorch version on the card, serves kin40k-shaped requests through the
-port's serving path (the trained θ, ξ, Λ of benchmarks/kin40k_refxu_trained.npz,
-inducing inputs and requests drawn from --seed), checks the answers, times
-the kernel, and prints
+PyTorch version on the card at every shape edge of its design, serves
+kin40k-shaped requests through the port's serving path (the trained θ, ξ,
+Λ of benchmarks/kin40k_refxu_trained.npz, inducing inputs and requests
+drawn from --seed), checks the answers, times the kernel, and prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
+- per timed Gram shape (serving 600×30000×8, training 600×10000×8 and
+  600×600×8): the kernel's device time (its launches replayed from a CUDA
+  graph), its time in a Python loop of launches between CUDA events (host
+  cost included), the time of ``fill_`` on an output of the same size (the
+  store ceiling any store-bound kernel meets on this card), the bound, and
+  the plain version's time;
 - one JSON line {"kernels": [...]} with each kernel's launches on the
-  serving path, its disagreement with the plain version and its times;
+  serving path, its disagreement with the plain version and those times;
 - as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
@@ -118,42 +124,81 @@ def phase_build():
     say("phase 2/5 build: done")
 
 
+def _held_to_plain(label, Z, X, var, ls, K):
+    """max |K − plain| on the card, checked against gram_tolerance."""
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_reference
+
+    K_ref = se_gram_reference(Z, X, var, ls)
+    torch.cuda.synchronize()
+    diff = (K - K_ref).abs()
+    max_abs = float(diff.max())
+    big = K_ref.abs() >= 1e-6 * float(var)
+    max_rel = float((diff[big] / K_ref.abs()[big]).max()) if bool(big.any()) else 0.0
+    tol = gram_tolerance(Z / ls, X / ls, var)
+    ok = (tuple(K.shape) == (Z.shape[0], X.shape[0]) and
+          bool(torch.isfinite(K).all()) and max_abs <= tol)
+    print(f"kernel {label}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+          f"(rel over |K|>=1e-6*var) tol={tol:.3e} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"se_gram kernel disagrees with its plain version at {label}")
+    return max_abs
+
+
 def phase_kernel(theta):
-    """Kernel against its plain version, both on the card."""
+    """Kernel against its plain version, both on the card, at every edge of
+    the kernel's design: 40-row × 256-column tiles walked by persistent
+    blocks strip by strip, 16-byte stores when N % 4 = 0 and 4-byte stores
+    otherwise, 8 input dimensions per pass, Z rows in a window of 1,024."""
     say("phase 3/5 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
-    from gaussianprocessnode_tpu_torch.ops.se_gram import (
-        SE_GRAM_MAX_D, se_gram_cuda, se_gram_reference)
+    from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
     sp = softplus(torch.as_tensor(theta)).float()
     rng = np.random.default_rng(1234)
+
+    def wide(D):  # lengthscales that keep d² of order 1 at wide D
+        return torch.as_tensor(rng.uniform(8.0, 24.0, D), dtype=torch.float32)
+
+    # (label, M, N, D, ℓ, σ², Kuu: X is Z)
     cases = [
-        ("600x30000x8 ARD", 600, 30000, 8, sp[1:], sp[0]),
-        ("600x10000x8 ARD", 600, 10000, 8, sp[1:], sp[0]),
-        ("37x1001x3 scalar-l", 37, 1001, 3, torch.tensor(1.3), torch.tensor(0.9)),
+        ("600x30000x8 ARD (serving; many more tiles than resident blocks)",
+         600, 30000, 8, sp[1:], sp[0], False),
+        ("600x10000x8 ARD (training Kux; N not a multiple of 256)",
+         600, 10000, 8, sp[1:], sp[0], False),
+        ("600x9999x8 ARD (N % 4 != 0: 4-byte stores)",
+         600, 9999, 8, sp[1:], sp[0], False),
+        ("600x600x8 ARD (training Kuu, K(Xu, Xu))", 600, 600, 8, sp[1:], sp[0], True),
+        ("601x2052x8 ARD (M not a multiple of 40; a 4-column last strip)",
+         601, 2052, 8, sp[1:], sp[0], False),
+        ("1x30000x8 ARD (M = 1; fewer tiles than SMs)", 1, 30000, 8, sp[1:], sp[0], False),
+        ("37x1001x3 scalar-l (fewer tiles than SMs; N % 4 != 0)",
+         37, 1001, 3, torch.tensor(1.3), torch.tensor(0.9), False),
+        ("300x5000x1 (D = 1)", 300, 5000, 1, torch.tensor(0.8), torch.tensor(1.1), False),
+        ("129x1300x20 ARD (D = 20: 3 passes, the last partial)",
+         129, 1300, 20, wide(20) / 4, torch.tensor(0.6), False),
         (f"70x300x{SE_GRAM_MAX_D} ARD (widest D)", 70, 300, SE_GRAM_MAX_D,
-         torch.as_tensor(rng.uniform(8.0, 24.0, SE_GRAM_MAX_D), dtype=torch.float32),
-         torch.tensor(1.7)),
+         wide(SE_GRAM_MAX_D), torch.tensor(1.7), False),
     ]
     results = {}
-    for label, M, N, D, ls, var in cases:
+    for label, M, N, D, ls, var, kuu in cases:
         Z = torch.as_tensor(rng.standard_normal((M, D)), dtype=torch.float32).cuda()
-        X = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32).cuda()
+        X = Z if kuu else torch.as_tensor(rng.standard_normal((N, D)),
+                                          dtype=torch.float32).cuda()
         ls, var = ls.cuda().contiguous(), var.cuda()
         K = se_gram_cuda(Z, X, var, ls)
-        K_ref = se_gram_reference(Z, X, var, ls)
-        torch.cuda.synchronize()
-        diff = (K - K_ref).abs()
-        max_abs = float(diff.max())
-        big = K_ref.abs() >= 1e-6 * float(var)
-        max_rel = float((diff[big] / K_ref.abs()[big]).max()) if bool(big.any()) else 0.0
-        tol = gram_tolerance(Z / ls, X / ls, var)
-        ok = bool(torch.isfinite(K).all()) and max_abs <= tol
-        print(f"kernel {label}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-              f"(rel over |K|>=1e-6*var) tol={tol:.3e} {'ok' if ok else 'FAIL'}",
-              flush=True)
-        check(ok, f"se_gram kernel disagrees with its plain version at {label}")
-        results[label] = max_abs
+        results[label] = _held_to_plain(label, Z, X, var, ls, K)
+
+    # two Grams back to back on one stream into different outputs, checked
+    # after both ran: a staged buffer refilled while still read, or one
+    # launch's stores racing the next launch, would show in either
+    ls, var = sp[1:].cuda().contiguous(), sp[0].cuda()
+    Z = torch.as_tensor(rng.standard_normal((600, 8)), dtype=torch.float32).cuda()
+    X1 = torch.as_tensor(rng.standard_normal((30000, 8)), dtype=torch.float32).cuda()
+    X2 = torch.as_tensor(rng.standard_normal((10000, 8)), dtype=torch.float32).cuda()
+    K1 = se_gram_cuda(Z, X1, var, ls)
+    K2 = se_gram_cuda(Z, X2, var, ls)
+    _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
+    _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
     say("phase 3/5 kernel vs plain: done")
     return results
 
@@ -234,32 +279,28 @@ def phase_serve(seed, z):
     return handle, X, launches
 
 
+# the Gram shapes timed: serving K(Xu, x*) per batch; the trainer's Kux and
+# Kuu per epoch
+TIMED_N = ((B_REQ, "serving"), (10000, "training Kux"), (M_IND, "training Kuu"))
+L2_BYTES = 50e6  # H100 L2
+
+
 def phase_times(handle, X, card):
+    """Each Gram shape timed four ways on the card: the kernel's device time
+    (a CUDA graph of 200 launches, replayed), the same launches from a
+    Python loop between CUDA events (host cost included), ``fill_`` of an
+    output of the same size (the store ceiling), and the plain version (a
+    CUDA graph of 20 calls)."""
     say("phase 5/5 times: start")
     from gaussianprocessnode_tpu_torch import serve
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda, se_gram_reference
-    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_time_ms
+    from gaussianprocessnode_tpu_torch.utils.profiling import (cuda_graph_time_ms,
+                                                                cuda_time_ms)
 
-    var, ls = handle.kernel.params(handle.theta)
-    times = {}
-    for N in (B_REQ, 10000):
-        Xn = X[0, :N].contiguous()
-        ms = cuda_time_ms(lambda: se_gram_cuda(handle.Xu, Xn, var, ls),
-                          iters=200, warmup=10)
-        plain_ms = cuda_time_ms(lambda: se_gram_reference(handle.Xu, Xn, var, ls),
-                                iters=50, warmup=3)
-        bound_ms, bound_by, nbytes, flops = gram_bound_ms(M_IND, N, D_IN)
-        times[N] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
-        print(f"se_gram {M_IND}x{N}x{D_IN}: kernel {ms:.5f} ms, bound "
-              f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e6:.1f} MFLOP), roofline share {bound_ms / ms:.3f}, "
-              f"plain version {plain_ms:.5f} ms (no yardstick: same "
-              f"arithmetic, unfused), library none [{card}]", flush=True)
+    # serving first, before any CUDA graph: after a graph's pool is
+    # released, the first allocations read slower
     pps = serve.throughput_fused(handle, X[0], n_batches=R_BATCHES, iters=3)
     batch_ms = B_REQ / pps * 1e3
-    K = se_gram_cuda(handle.Xu, X[0], var, ls)
-    mv_ms = cuda_time_ms(lambda: K.T @ handle.mu_v, iters=50, warmup=3)
     # the host's own time to queue the 64 batches (no sync inside): when it
     # matches the time per batch, the host, not the card, sets the rate
     torch.cuda.synchronize()
@@ -267,13 +308,44 @@ def phase_times(handle, X, card):
     serve.serve_fused(handle, X)
     enqueue_ms = (time.perf_counter() - t) * 1e3 / R_BATCHES
     torch.cuda.synchronize()
+    var, ls = handle.kernel.params(handle.theta)
+    shapes = []
+    for N, role in TIMED_N:
+        Xn = handle.Xu if N == M_IND else X[0, :N].contiguous()
+        out = torch.empty((M_IND, N), dtype=torch.float32, device="cuda")
+        gram = lambda: se_gram_cuda(handle.Xu, Xn, var, ls)
+        device_ms = cuda_graph_time_ms(gram, iters=200, warmup=5)
+        store_ms = cuda_graph_time_ms(lambda: out.fill_(1.0), iters=200, warmup=5)
+        device_ms_2 = cuda_graph_time_ms(gram, iters=200, warmup=5)
+        host_ms = cuda_time_ms(gram, iters=200, warmup=10)
+        plain_ms = cuda_graph_time_ms(lambda: se_gram_reference(handle.Xu, Xn, var, ls),
+                                      iters=20, warmup=3)
+        bound_ms, bound_by, nbytes, flops = gram_bound_ms(M_IND, N, D_IN)
+        l2 = "fits in" if 4.0 * M_IND * N < L2_BYTES else "exceeds"
+        row = dict(shape=[M_IND, N, D_IN], role=role, device_ms=device_ms,
+                   device_ms_repeat=device_ms_2, host_loop_ms=host_ms,
+                   store_ceiling_ms=store_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   roofline_share=bound_ms / device_ms, plain_ms=plain_ms,
+                   library_ms=None, output_vs_l2=f"output {l2} the 50 MB L2")
+        shapes.append(row)
+        print(f"se_gram {M_IND}x{N}x{D_IN} ({role}): device {device_ms:.5f} ms "
+              f"(again {device_ms_2:.5f}), host loop {host_ms:.5f} ms, fill_ store "
+              f"ceiling {store_ms:.5f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), roofline share "
+              f"{bound_ms / device_ms:.3f}, share of fill_ {store_ms / device_ms:.3f}, "
+              f"plain version {plain_ms:.5f} ms (no yardstick: same arithmetic, "
+              f"unfused), library none; output {l2} L2 [{card}]", flush=True)
+    K = se_gram_cuda(handle.Xu, X[0], var, ls)
+    mv_ms = cuda_graph_time_ms(lambda: K.T @ handle.mu_v, iters=50, warmup=3)
+    gram_ms = shapes[0]["device_ms"]
     print(f"serve_fused: {pps:.6e} predictions/s (R={R_BATCHES}, B={B_REQ}, "
           f"host clock between synchronisations) = {batch_ms:.5f} ms per batch: "
-          f"Gram kernel {times[B_REQ]['ms']:.5f} ms, mat-vec K^T mu "
-          f"{mv_ms:.5f} ms (CUDA events), rest {batch_ms - times[B_REQ]['ms'] - mv_ms:.5f} ms; "
-          f"host time to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
+          f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
+          f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
+          f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
     say("phase 5/5 times: done")
-    return times, pps
+    return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
+                        enqueue_ms=enqueue_ms)
 
 
 def main(argv=None) -> int:
@@ -293,12 +365,12 @@ def main(argv=None) -> int:
         z = dict(np.load(NPZ, allow_pickle=False))
         diffs = phase_kernel(z["theta"])
         handle, X, launches = phase_serve(args.seed, z)
-        times, pps = phase_times(handle, X, card)
+        shapes, serving = phase_times(handle, X, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
-    t30, t10 = times[B_REQ], times[10000]
-    max_abs = diffs["600x30000x8 ARD"]
+    t30, t10 = shapes[0], shapes[1]
+    max_abs = diffs["600x30000x8 ARD (serving; many more tiles than resident blocks)"]
     kernel = {
         "name": "se_gram",
         "route": "cuda",
@@ -308,18 +380,24 @@ def main(argv=None) -> int:
         "launches": launches,
         "max_abs_err": max_abs,
         "max_abs_diff": max_abs,
-        "ms": t30["ms"],
+        "ms": t30["device_ms"],
+        "device_ms": t30["device_ms"],
+        "host_loop_ms": t30["host_loop_ms"],
+        "store_ceiling_ms": t30["store_ceiling_ms"],
         "plain_ms": t30["plain_ms"],
         "bound_ms": t30["bound_ms"],
         "bound_us": t30["bound_ms"] * 1e3,
         "bound_by": t30["bound_by"],
         "library_ms": None,
-        "shape": [M_IND, B_REQ, D_IN],
-        "ms_600x10000": t10["ms"],
+        "shape": t30["shape"],
+        "shapes": shapes,
+        "ms_600x10000": t10["device_ms"],
         "plain_ms_600x10000": t10["plain_ms"],
         "bound_ms_600x10000": t10["bound_ms"],
-        "serve_fused_preds_per_s": pps,
-        "serve_batch_ms": B_REQ / pps * 1e3,
+        "serve_fused_preds_per_s": serving["pps"],
+        "serve_batch_ms": serving["batch_ms"],
+        "serve_enqueue_ms": serving["enqueue_ms"],
+        "matvec_ms": serving["matvec_ms"],
         "card": card,
     }
     print(f"nvidia-smi: {card}", flush=True)

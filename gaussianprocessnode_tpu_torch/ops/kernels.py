@@ -102,8 +102,9 @@ class Kernel:
     θ first; ``'identity'`` takes θ as it is.
 
     ``use_kernel=True`` (the counterpart of ``use_pallas``) routes SE Grams
-    through ``ops/se_gram.py``: the hand-written CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors.
+    through ``ops/se_gram.py::se_gram_auto``: the hand-written CUDA kernel
+    for float32 CUDA tensors, the plain Gram for CPU tensors and any other
+    dtype.
     """
 
     kind: str = "se"

@@ -9,12 +9,16 @@ kernel ``_gram_kernel`` and the wrappers ``se_gram_pallas`` /
   CPU tensors;
 - ``se_gram_reference``: the plain PyTorch version, the same expanded-form
   arithmetic; the CPU path, and the yardstick of correctness on the card;
-- ``se_gram_fused``: a ``torch.autograd.Function`` with the kernel forward
-  and the analytic matmul-only VJP of ``_se_gram_bwd``.
+- ``se_gram_auto``: the kernel for float32 Grams on the card, the plain
+  ``ops.kernels.se_gram`` for CPU tensors and any other dtype, chosen
+  before the call (``se_gram_route``), as ``pallas_gram.se_gram_auto``
+  keeps f64 off its Pallas kernel;
+- ``se_gram_fused``: a ``torch.autograd.Function`` with ``se_gram_auto`` as
+  forward and the analytic matmul-only VJP of ``_se_gram_bwd``.
 
-The kernel is bound by its output store (72 MB at the serving shape 600 ×
-30000 against 0.29 GFLOP of cross term); ``se_gram.cu`` says what its design
-does about that.
+At the serving shape 600 × 30000 the kernel writes 72 MB and does 8 FMAs
+and an exp per output; ``se_gram.cu`` says what bounds it and what its
+design does about that.
 """
 
 import contextlib
@@ -24,7 +28,8 @@ import torch
 
 from . import kernels as _k
 
-__all__ = ["SE_GRAM_MAX_D", "se_gram_cuda", "se_gram_reference", "se_gram_fused"]
+__all__ = ["SE_GRAM_MAX_D", "se_gram_cuda", "se_gram_reference", "se_gram_route",
+           "se_gram_auto", "se_gram_fused"]
 
 # widest input the kernel takes (se_gram.cu: kMaxD); the chip check holds the
 # kernel against its plain version at this width
@@ -120,6 +125,32 @@ def se_gram_cuda(Z, X, variance, lengthscales):
 se_gram_cuda.launches = 0
 
 
+def se_gram_route(device, dtype) -> str:
+    """Where ``se_gram_auto`` sends a Gram of ``dtype`` inputs on ``device``:
+    ``"kernel"`` (the CUDA kernel) for float32 on a CUDA card, ``"plain"``
+    (``ops.kernels.se_gram``) for CPU tensors and for any other dtype. A
+    float32 Gram on another device has no route and raises."""
+    device = torch.device(device)
+    if dtype != torch.float32:
+        return "plain"
+    if device.type == "cuda":
+        return "kernel"
+    if device.type == "cpu":
+        return "plain"
+    raise ValueError(f"se_gram_route: no kernel for device {device}")
+
+
+def se_gram_auto(Z, X, variance, lengthscales):
+    """SE Gram K(Z, X) by ``se_gram_route``, decided before the call: float32
+    Z and X on a CUDA card go to the kernel (``se_gram_cuda``), anything
+    else to the plain ``ops.kernels.se_gram`` in its own dtype
+    (``pallas_gram.se_gram_auto`` takes its kernel for float32 only, too)."""
+    route = se_gram_route(Z.device, torch.promote_types(Z.dtype, X.dtype))
+    if route == "kernel":
+        return se_gram_cuda(Z, X, variance, lengthscales)
+    return _k.se_gram(Z, X, variance, lengthscales)
+
+
 class _SEGramFused(torch.autograd.Function):
     """Kernel forward, analytic VJP. For K = σ²·exp(−½ Σ_k (z_k−x_k)²/ℓ_k²)
     and W = Ḡ ⊙ K (r, c its row and column sums):
@@ -132,7 +163,7 @@ class _SEGramFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Z, X, variance, lengthscales):
-        K = se_gram_cuda(Z, X, variance, lengthscales)
+        K = se_gram_auto(Z, X, variance, lengthscales)
         ctx.save_for_backward(Z, X, variance, lengthscales, K)
         return K
 
@@ -156,6 +187,6 @@ class _SEGramFused(torch.autograd.Function):
 
 
 def se_gram_fused(Z, X, variance, lengthscales):
-    """Differentiable SE Gram: ``se_gram_cuda`` forward, analytic matmul-only
+    """Differentiable SE Gram: ``se_gram_auto`` forward, analytic matmul-only
     VJP. Drop-in for ``ops.kernels.se_gram`` (argument order (Z, X, σ², ℓ))."""
     return _SEGramFused.apply(Z, X, variance, lengthscales)

@@ -2,13 +2,15 @@
 
 Counterpart of ``gaussianprocessnode_tpu/utils/profiling.py``. PyTorch
 returns before the device finishes, so a host clock measures work only
-between two ``synchronize`` calls, and a kernel's own time comes from CUDA
-events around a run of launches.
+between two ``synchronize`` calls. ``cuda_time_ms`` puts CUDA events
+around a Python loop of calls, so it also holds each call's host cost
+where that exceeds the device's; ``cuda_graph_time_ms`` replays the calls
+from a CUDA graph, so it holds device time alone.
 """
 
 import torch
 
-__all__ = ["synchronize", "cuda_time_ms"]
+__all__ = ["synchronize", "cuda_time_ms", "cuda_graph_time_ms"]
 
 
 def synchronize(device=None) -> None:
@@ -30,6 +32,37 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_graph_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn()``: ``warmup`` calls, then
+    ``iters`` calls captured into one ``torch.cuda.CUDAGraph`` on a side
+    stream, replayed once (to warm the graph) and then timed by CUDA events
+    around one replay. The Python and launch cost of each call is not in
+    the figure. Outputs that ``fn`` allocates come from the graph's private
+    pool, so successive calls inside the graph may write the same memory.
+    Raises without a CUDA card: there is no device time to give."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_graph_time_ms needs a CUDA card")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters

@@ -43,13 +43,28 @@ def _gram_tol(Z, X, var, ls):
     return float(var) * EPS32 * (4 + (Z.shape[1] + 2) * sum(norms))
 
 
+# every edge of the kernel's design (40-row × 256-column tiles walked by
+# persistent blocks strip by strip; 16-byte stores when N % 4 = 0, 4-byte
+# stores otherwise; 8 input dimensions per pass); kuu: X is Z
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N,D,ard", [(600, 10000, 8, True), (37, 1001, 3, False),
-                                       (70, 300, sg.SE_GRAM_MAX_D, True),
-                                       (1, 1, 1, False)])
-def test_kernel_matches_plain_version_on_card(M, N, D, ard):
+@pytest.mark.parametrize("M,N,D,ard,kuu", [
+    (600, 10000, 8, True, False),             # N not a multiple of 256
+    (37, 1001, 3, False, False),              # fewer tiles than SMs, N % 4 != 0
+    (70, 300, sg.SE_GRAM_MAX_D, True, False),  # widest D, 32 passes
+    (1, 1, 1, False, False),
+    (600, 30000, 8, True, False),             # serving: far more tiles than blocks
+    (600, 9999, 8, True, False),              # N % 4 != 0: 4-byte stores
+    (600, 600, 8, True, True),                # training Kuu
+    (601, 2052, 8, True, False),              # M % 40 != 0, a 4-column last strip
+    (1, 30000, 8, True, False),               # M = 1
+    (300, 5000, 1, False, False),             # D = 1
+    (129, 1300, 20, True, False),             # D = 20: 3 passes, the last partial
+])
+def test_kernel_matches_plain_version_on_card(M, N, D, ard, kuu):
     _need_card()
     Z, X, var, ls = _case(5, M, N, D, ard)
+    if kuu:
+        X = Z
     args = [torch.as_tensor(a).cuda() for a in (Z, X, var, ls)]
     before = sg.se_gram_cuda.launches
     K = sg.se_gram_cuda(*args)
@@ -59,6 +74,58 @@ def test_kernel_matches_plain_version_on_card(M, N, D, ard):
     assert K.dtype == torch.float32 and tuple(K.shape) == (M, N)
     np.testing.assert_allclose(K.cpu().numpy(), K_ref.cpu().numpy(), rtol=0,
                                atol=_gram_tol(Z, X, var, ls))
+
+
+@pytest.mark.gpu
+def test_back_to_back_grams_on_one_stream_on_card():
+    """Two launches queued on one stream into different outputs, checked
+    after both ran: a staged buffer refilled while still read, or one
+    launch's stores racing the next launch, would show in either."""
+    _need_card()
+    Z, X1, var, ls = _case(8, 600, 30000, 8, True)
+    X2 = np.random.default_rng(9).standard_normal((10000, 8)).astype(np.float32)
+    Zc, X1c, X2c, vc, lc = (torch.as_tensor(a).cuda() for a in (Z, X1, X2, var, ls))
+    K1 = sg.se_gram_cuda(Zc, X1c, vc, lc)
+    K2 = sg.se_gram_cuda(Zc, X2c, vc, lc)
+    refs = [sg.se_gram_reference(Zc, Xc, vc, lc) for Xc in (X1c, X2c)]
+    torch.cuda.synchronize()
+    for K, K_ref, X in zip((K1, K2), refs, (X1, X2)):
+        np.testing.assert_allclose(K.cpu().numpy(), K_ref.cpu().numpy(), rtol=0,
+                                   atol=_gram_tol(Z, X, var, ls))
+
+
+@pytest.mark.gpu
+def test_float64_kernel_gram_takes_plain_route_on_card():
+    """Kernel(use_kernel=True) on float64 CUDA tensors computes the plain f64
+    Gram (1e-12 relative: the same f64 operations, other summation orders
+    on the card) without launching the f32 kernel, as the JAX package's
+    se_gram_auto keeps f64 off its Pallas kernel; its θ-gradient matches
+    the CPU's to 1e-10 relative."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, se_gram, softplus
+
+    rng = np.random.default_rng(10)
+    theta = np.array([0.3, 0.8, 1.1, 0.6])
+    Z, X = rng.standard_normal((40, 3)), rng.standard_normal((70, 3))
+    G = rng.standard_normal((40, 70))
+    kern = Kernel("se", "softplus", use_kernel=True)
+    grads, grams = [], []
+    for dev in ("cpu", "cuda"):
+        th = torch.tensor(theta, device=dev, requires_grad=True)
+        Zd, Xd = torch.as_tensor(Z, device=dev), torch.as_tensor(X, device=dev)
+        before = sg.se_gram_cuda.launches
+        K = kern(th, Zd, Xd)
+        assert sg.se_gram_cuda.launches == before
+        assert K.dtype == torch.float64 and K.device.type == dev
+        torch.sum(torch.as_tensor(G, device=dev) * K).backward()
+        sp = softplus(th.detach())
+        plain = se_gram(Zd, Xd, sp[0], sp[1:])
+        np.testing.assert_allclose(K.detach().cpu().numpy(), plain.cpu().numpy(),
+                                   rtol=1e-12, atol=1e-15)
+        grads.append(th.grad.cpu().numpy())
+        grams.append(K.detach().cpu().numpy())
+    np.testing.assert_allclose(grams[1], grams[0], rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(grads[1], grads[0], rtol=1e-10, atol=1e-13)
 
 
 @pytest.mark.gpu

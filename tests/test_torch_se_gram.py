@@ -65,6 +65,48 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     assert sg.se_gram_cuda.launches == before  # no kernel launched
 
 
+@pytest.mark.parametrize("device,dtype,route", [
+    ("cpu", torch.float32, "plain"),
+    ("cpu", torch.float64, "plain"),
+    ("cuda", torch.float32, "kernel"),
+    ("cuda:1", torch.float32, "kernel"),
+    ("cuda", torch.float64, "plain"),
+    ("cuda", torch.float16, "plain"),
+    ("cuda", torch.bfloat16, "plain"),
+    ("meta", torch.float64, "plain"),
+])
+def test_route_by_device_and_dtype(device, dtype, route):
+    """The kernel only for float32 on a CUDA card; every other dtype takes
+    the plain Gram, as pallas_gram.se_gram_auto keeps f64 off its kernel."""
+    assert sg.se_gram_route(device, dtype) == route
+
+
+def test_route_refuses_float32_on_a_device_without_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        sg.se_gram_route("meta", torch.float32)
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float64, torch.float64),
+                                    (torch.float32, torch.float64)])
+def test_auto_takes_the_plain_gram_for_non_float32(dtypes):
+    """se_gram_auto against the JAX se_gram_auto in f64 (its jnp path):
+    1e-12 relative (the inputs are f32 values, exact in f64, so a float32 Z
+    beside a float64 X changes nothing); no kernel launch, the result in
+    the promoted dtype."""
+    Z, X, var, ls = _case(11, 25, 40, 5, True)
+    want = np.asarray(pg.se_gram_auto(jnp.asarray(Z, np.float64), jnp.asarray(X, np.float64),
+                                      jnp.asarray(var, np.float64),
+                                      jnp.asarray(ls, np.float64)))
+    before = sg.se_gram_cuda.launches
+    got = sg.se_gram_auto(torch.as_tensor(Z, dtype=dtypes[0]),
+                          torch.as_tensor(X, dtype=dtypes[1]),
+                          torch.tensor(var, dtype=torch.float64),
+                          torch.as_tensor(ls, dtype=torch.float64))
+    assert sg.se_gram_cuda.launches == before
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_reference_matches_jax_se_gram(dtype):
     """In f64 as well: the plain version is the JAX package's jnp SE Gram
@@ -202,3 +244,42 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
     assert d0 == _build._digest(srcs)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest(srcs) != d0
+
+
+def _rn32(x):
+    """An exact rational rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    if x == 0:
+        return 0.0
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += 1 if Fraction(2) ** (e + 1) <= x else 0
+    e -= 1 if Fraction(2) ** e > x else 0
+    ulp = Fraction(2) ** (max(e, -126) - 23)
+    m = x / ulp
+    q, rem = divmod(m.numerator, m.denominator)
+    if 2 * rem > m.denominator or (2 * rem == m.denominator and q % 2):
+        q += 1
+    return float(sign * q * ulp)
+
+
+def test_fma_corrected_division_is_correctly_rounded():
+    """The kernel scales its inputs by ℓ with q = RN(a·r), r = RN(1/ℓ), then
+    q + RN(a − ℓq)·r in one FMA (se_gram.cu: fast_div), where the plain
+    version divides. Emulated here in exact arithmetic, step by step, it
+    gives RN(a/ℓ) for every pair: random inputs, and quotients on either
+    side of rounding midpoints."""
+    from fractions import Fraction as F
+
+    rng = np.random.default_rng(0)
+    A = np.concatenate([rng.standard_normal(1500), rng.uniform(-1e3, 1e3, 1500),
+                        1 + np.arange(500) * 2.0 ** -23]).astype(np.float32)
+    B = np.concatenate([rng.uniform(0.05, 30, 1500), np.exp(rng.uniform(-5, 5, 1500)),
+                        np.full(500, 3.0)]).astype(np.float32)
+    for a, b in zip(A.tolist(), B.tolist()):
+        r = _rn32(1 / F(b))
+        q = _rn32(F(a) * F(r))
+        rem = _rn32(F(a) - F(b) * F(q))       # exact: fma(−q, ℓ, a)
+        got = _rn32(F(q) + F(rem) * F(r))     # fma(rem, r, q)
+        assert got == _rn32(F(a) / F(b)) == float(np.float32(a) / np.float32(b)), (a, b)
