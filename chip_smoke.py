@@ -9,18 +9,25 @@ It builds the port's CUDA kernel with nvcc, holds it against its plain
 PyTorch version on the card at every shape edge of its design, serves
 kin40k-shaped requests through the port's serving path (the trained θ, ξ,
 Λ of benchmarks/kin40k_refxu_trained.npz, inducing inputs and requests
-drawn from --seed), checks the answers, times the kernel, and prints
+drawn from --seed), checks the answers, times the kernel, trains the kin40k
+fast trainer for three epochs at full width on synthetic data from --seed
+(through the kernel, and again through the plain Gram, checked against each
+other; epochs 2–3 under set_sync_debug_mode("error")), times a θ-step and a
+statistics refresh, and prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
-- per timed Gram shape (serving 600×30000×8, training 600×10000×8 and
-  600×600×8): the kernel's device time (its launches replayed from a CUDA
+- per timed Gram shape (serving 600×30000×8, training 600×10000×8,
+  600×600×8 and 600×500×8): the kernel's device time (its launches replayed from a CUDA
   graph), its time in a Python loop of launches between CUDA events (host
   cost included), the time of ``fill_`` on an output of the same size (the
   store ceiling any store-bound kernel meets on this card), the bound, and
   the plain version's time;
+- the training epochs' kernel launches, their agreement with the plain
+  Gram's epochs, and a θ-step's and a refresh's device and host times;
 - one JSON line {"kernels": [...]} with each kernel's launches on the
-  serving path, its disagreement with the plain version and those times;
+  serving path and per training epoch, its disagreement with the plain
+  version and those times;
 - as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
@@ -92,7 +99,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/5 device: start")
+    say("phase 1/6 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -106,12 +113,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/5 device: done")
+    say("phase 1/6 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/5 build: start")
+    say("phase 2/6 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -121,7 +128,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/5 build: done")
+    say("phase 2/6 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -149,7 +156,7 @@ def phase_kernel(theta):
     the kernel's design: 40-row × 256-column tiles walked by persistent
     blocks strip by strip, 16-byte stores when N % 4 = 0 and 4-byte stores
     otherwise, 8 input dimensions per pass, Z rows in a window of 1,024."""
-    say("phase 3/5 kernel vs plain: start")
+    say("phase 3/6 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -168,6 +175,8 @@ def phase_kernel(theta):
         ("600x9999x8 ARD (N % 4 != 0: 4-byte stores)",
          600, 9999, 8, sp[1:], sp[0], False),
         ("600x600x8 ARD (training Kuu, K(Xu, Xu))", 600, 600, 8, sp[1:], sp[0], True),
+        ("600x500x8 ARD (training Kux of a batch; fewer tiles than SMs)",
+         600, 500, 8, sp[1:], sp[0], False),
         ("601x2052x8 ARD (M not a multiple of 40; a 4-column last strip)",
          601, 2052, 8, sp[1:], sp[0], False),
         ("1x30000x8 ARD (M = 1; fewer tiles than SMs)", 1, 30000, 8, sp[1:], sp[0], False),
@@ -199,12 +208,12 @@ def phase_kernel(theta):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/5 kernel vs plain: done")
+    say("phase 3/6 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/5 serving: start")
+    say("phase 4/6 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -275,13 +284,15 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/5 serving: done")
+    say("phase 4/6 serving: done")
     return handle, X, launches
 
 
-# the Gram shapes timed: serving K(Xu, x*) per batch; the trainer's Kux and
-# Kuu per epoch
-TIMED_N = ((B_REQ, "serving"), (10000, "training Kux"), (M_IND, "training Kuu"))
+# the Gram shapes timed: serving K(Xu, x*) per batch; the trainer's Kux of
+# all training points (once per epoch), Kuu and a batch's Kux (20 times each
+# per epoch)
+TIMED_N = ((B_REQ, "serving"), (10000, "training Kux"), (M_IND, "training Kuu"),
+           (500, "training Kux of a batch"))
 L2_BYTES = 50e6  # H100 L2
 
 
@@ -291,7 +302,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/5 times: start")
+    say("phase 5/6 times: start")
     from gaussianprocessnode_tpu_torch import serve
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda, se_gram_reference
     from gaussianprocessnode_tpu_torch.utils.profiling import (cuda_graph_time_ms,
@@ -343,9 +354,184 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/5 times: done")
+    say("phase 5/6 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
+
+
+N_TRAIN, BATCH, EPOCHS = 10000, 500, 3   # kin40k training: 20 batches of 500
+LAUNCHES_PER_EPOCH = 1 + 2 * (N_TRAIN // BATCH)  # K(Xu, X); Kuu and Kux per θ-step
+# kernel-trained against plain-trained epochs, relative 2-norm on θ, ξ, Λ:
+# the two Grams differ by the f32 rounding bound above (~1e-6 of σ²); the
+# 20 AdaMax steps of an epoch move θ by at most lr = 1e-3 each, scaled by
+# the gradient's relative change, and ξ, Λ follow θ through the Gram. The
+# JAX and torch trainers, which differ by such rounding, agree to 2.3e-6
+# over three epochs (tests/test_torch_minibatch.py); 1e-4 leaves room for
+# κ(Kuu) at M = 600.
+TRAIN_RTOL = 1e-4
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def phase_train(seed, card):
+    """The kin40k fast trainer at full width (M = 600, D = 8, N = 10,000 in
+    20 batches of 500, one statistics refresh per epoch) on synthetic data
+    from ``seed``: three epochs through the kernel and three through the
+    plain Gram from the same start, held to each other after each epoch;
+    41 kernel launches per epoch; epochs 2 and 3 under
+    ``set_sync_debug_mode("error")``. Then a θ-step and a statistics refresh
+    timed on a copy of the carry: device time from a CUDA graph of the step
+    (a step with a host sync could not be captured), and host time eager;
+    and one eager epoch's device time by kernel group from a profiler
+    trace."""
+    say("phase 6/6 training: start")
+    from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
+    from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
+                                                               fast_optimizer,
+                                                               fit_kin40k_fast)
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.utils.metrics import smse
+    from gaussianprocessnode_tpu_torch.utils.profiling import (cuda_graph_time_ms,
+                                                                cuda_kernel_times)
+
+    ds = runner.load_data("synthetic", seed)
+    theta0, Xu, Xb, yb, prior = runner.setup(ds, M_IND, BATCH, N_TRAIN, seed, "cuda")
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus", use_kernel=False)
+
+    def epoch(kernel, carry):
+        return fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior, runner.W_VAL, 1,
+                               resume_state=carry)
+
+    carry_k = carry_p = None
+    launches, epoch_ms, diffs = [], [], []
+    # the main path: counts at 0 just before, read just after
+    se_gram_cuda.launches = 0
+    for e in range(EPOCHS):
+        before = se_gram_cuda.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if e > 0 else "default")
+        try:
+            th_k, nat_k, cov_k, carry_k = epoch(kern, carry_k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(se_gram_cuda.launches - before)
+        th_p, nat_p, _, carry_p = epoch(plain, carry_p)
+        check(se_gram_cuda.launches - before == launches[-1], "the plain Gram launched the kernel")
+        d = dict(theta=_rel(th_k, th_p), xi=_rel(nat_k.xi, nat_p.xi),
+                 prec=_rel(nat_k.prec, nat_p.prec))
+        diffs.append(d)
+        finite = all(bool(torch.isfinite(t_).all())
+                     for t_ in (th_k, nat_k.xi, nat_k.prec, cov_k, th_p, nat_p.prec))
+        print(f"epoch {e + 1}: kernel route {epoch_ms[-1]:.1f} ms (host clock, "
+              f"{'sync debug mode error' if e > 0 else 'first epoch'}), se_gram "
+              f"launches {launches[-1]}; kernel vs plain relative: theta "
+              f"{d['theta']:.3e}, xi {d['xi']:.3e}, Lambda {d['prec']:.3e} (limit "
+              f"{TRAIN_RTOL:.0e}); finite {finite}", flush=True)
+        check(finite, f"non-finite trainer state after epoch {e + 1}")
+        check(launches[-1] == LAUNCHES_PER_EPOCH,
+              f"{launches[-1]} kernel launches in epoch {e + 1}, expected {LAUNCHES_PER_EPOCH}")
+        check(max(d.values()) <= TRAIN_RTOL,
+              f"kernel-trained and plain-trained epoch {e + 1} disagree: {d}")
+    total = se_gram_cuda.launches
+
+    X_test = torch.as_tensor(ds.x_test, dtype=torch.float32, device=Xu.device)
+    mean = runner.predict(kern, th_k, Xu, nat_k, cov_k, X_test)
+    score = float(smse(torch.as_tensor(ds.y_test), mean.cpu().double()))
+    print(f"SMSE after {EPOCHS} epochs on {X_test.shape[0]} synthetic test points: "
+          f"{score:.6f} (a zero predictor scores ~1)", flush=True)
+    check(score == score and score < 1.0, f"SMSE {score} after {EPOCHS} epochs")
+
+    # one θ-step and one refresh on a copy of the carry
+    c = FastCarry(*(t_.clone() for t_ in carry_k[:4]),
+                  {k: v.clone() for k, v in carry_k.opt_state.items()},
+                  carry_k.kuu_inv.clone())
+    refresh, theta_step = fast_epoch_steps(kern, Xu, prior, runner.W_VAL,
+                                           fast_optimizer(1e-3), torch.float32)
+    xi0, prec0 = prior.xi.double(), prior.prec.double()
+    Xall, yall = Xb.reshape(-1, D_IN), yb.reshape(-1)
+    _, _, _, mu_v, Rv = refresh(c.theta, xi0, prec0, c.covs64[0], Xall, yall)
+
+    def step():
+        theta_step(c.theta, c.opt_state, c.kuu_inv, (Xb[0], yb[0], mu_v, Rv))
+
+    def refresh_once():
+        refresh(c.theta, xi0, prec0, c.covs64[0], Xall, yall)
+
+    def eager_ms(fn, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queued = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n, queued * 1e3 / n
+
+    def one_epoch():
+        _, _, cov, mu, R = refresh(c.theta, xi0, prec0, c.covs64[0], Xall, yall)
+        c.covs64[0].copy_(cov)
+        for b in range(N_TRAIN // BATCH):
+            theta_step(c.theta, c.opt_state, c.kuu_inv, (Xb[b], yb[b], mu, R))
+
+    # one eager epoch under torch.profiler: device time by kernel group
+    prof_wall, kernels = cuda_kernel_times(one_epoch)
+    groups = {"se_gram kernel": [0, 0.0], "GEMM (cuBLAS)": [0, 0.0], "other": [0, 0.0]}
+    for name, (n, ms) in kernels.items():
+        low = name.lower()
+        g = ("se_gram kernel" if "se_gram" in low else
+             "GEMM (cuBLAS)" if any(k in low for k in ("gemm", "cutlass", "xmma")) else
+             "other")
+        groups[g][0] += n
+        groups[g][1] += ms
+    prof_dev = sum(ms for _, ms in groups.values())
+    if kernels:
+        print(f"profiled eager epoch: wall {prof_wall:.2f} ms (profiler on), device "
+              f"{prof_dev:.2f} ms, busy share {prof_dev / prof_wall:.3f}; " +
+              "; ".join(f"{g} {ms:.3f} ms in {n} launches" for g, (n, ms) in groups.items())
+              + f" [{card}]", flush=True)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+        for name, (n, ms) in top:
+            print(f"  {ms:8.3f} ms {n:6d} x {name[:110]}", flush=True)
+    else:
+        print("profiled eager epoch: the profiler recorded no device time "
+              "(not measured)", flush=True)
+
+    step_eager, step_queue = eager_ms(step, 20)
+    ref_eager, ref_queue = eager_ms(refresh_once, 5)
+    step_dev = cuda_graph_time_ms(step, iters=20, warmup=3)
+    ref_dev = cuda_graph_time_ms(refresh_once, iters=5, warmup=2)
+    step_eager_2, _ = eager_ms(step, 20)
+    epoch_host = sum(epoch_ms[1:]) / (EPOCHS - 1)
+    busy = (N_TRAIN // BATCH) * step_dev + ref_dev
+    print(f"theta-step: device {step_dev:.4f} ms (CUDA graph of 20 steps), eager "
+          f"{step_eager:.4f} ms (again {step_eager_2:.4f}; host clock, 20 steps "
+          f"between synchronisations), host time to queue one {step_queue:.4f} ms "
+          f"[{card}]", flush=True)
+    print(f"statistics refresh: device {ref_dev:.4f} ms (CUDA graph of 5), eager "
+          f"{ref_eager:.4f} ms, host time to queue one {ref_queue:.4f} ms [{card}]",
+          flush=True)
+    print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
+          f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
+          f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
+    say("phase 6/6 training: done")
+    return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
+                kernel_vs_plain=diffs, smse_3_epochs=score,
+                theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
+                theta_step_eager_ms_again=step_eager_2, theta_step_queue_ms=step_queue,
+                refresh_device_ms=ref_dev, refresh_eager_ms=ref_eager,
+                refresh_queue_ms=ref_queue, epoch_device_ms=busy,
+                idle_share=1.0 - busy / epoch_host,
+                profiled_epoch={"wall_ms": prof_wall, "device_ms": prof_dev,
+                                "by_group": {g: {"launches": n, "ms": ms}
+                                             for g, (n, ms) in groups.items()}}
+                if kernels else None)
 
 
 def main(argv=None) -> int:
@@ -366,10 +552,11 @@ def main(argv=None) -> int:
         diffs = phase_kernel(z["theta"])
         handle, X, launches = phase_serve(args.seed, z)
         shapes, serving = phase_times(handle, X, card)
+        train = phase_train(args.seed, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
-    t30, t10 = shapes[0], shapes[1]
+    t30, t10, t600, t500 = shapes
     max_abs = diffs["600x30000x8 ARD (serving; many more tiles than resident blocks)"]
     kernel = {
         "name": "se_gram",
@@ -377,7 +564,9 @@ def main(argv=None) -> int:
         "source": "gaussianprocessnode_tpu_torch/ops/csrc/se_gram.cu",
         "replaces": "gaussianprocessnode_tpu/ops/pallas_gram.py:34",
         "tpu_kernel": "ops/pallas_gram.py::_gram_kernel",
-        "launches": launches,
+        "launches": launches + train["launches"],
+        "launches_by_path": {"serving": launches, "training": train["launches"]},
+        "launches_training_per_epoch": train["launches_per_epoch"],
         "max_abs_err": max_abs,
         "max_abs_diff": max_abs,
         "ms": t30["device_ms"],
@@ -394,6 +583,15 @@ def main(argv=None) -> int:
         "ms_600x10000": t10["device_ms"],
         "plain_ms_600x10000": t10["plain_ms"],
         "bound_ms_600x10000": t10["bound_ms"],
+        "ms_600x600": t600["device_ms"],
+        "plain_ms_600x600": t600["plain_ms"],
+        "bound_ms_600x600": t600["bound_ms"],
+        "ms_600x500": t500["device_ms"],
+        "host_loop_ms_600x500": t500["host_loop_ms"],
+        "store_ceiling_ms_600x500": t500["store_ceiling_ms"],
+        "plain_ms_600x500": t500["plain_ms"],
+        "bound_ms_600x500": t500["bound_ms"],
+        "training": train,
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -5,15 +5,21 @@ has one JAX counterpart that the tests hold it against. The port imports
 torch and numpy only; it keeps its own copies of what it needs rather than
 importing the JAX package (whose ``__init__`` imports jax).
 
-Ported so far (the kin40k serving path):
+Ported so far (the kin40k serving path and fast trainer):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussianNat / GammaShapeRate
     ops.kernels            stationary Grams and ``Kernel``
     ops.se_gram            the hand-written CUDA SE Gram (``ops/csrc/se_gram.cu``)
-    ops.linalg             Newton–Schulz SPD inverse and iterative refinement
+    ops.linalg             jitter, Newton–Schulz SPD inverse (with its VJP),
+                           iterative refinement
+    objectives             ``neg_log_backwardmess_gram``
     infer.batch_vmp        ``predict_out``
+    infer.minibatch        ``fit_kin40k_fast`` and its AdaMax chain
     serve                  ``SGPRegressor``, ``serve_fused``, throughput timers
-    convert                the JAX package's arrays → a serving handle
+    convert                the JAX package's arrays → a serving handle or a
+                           trainer carry
+    utils.datasets         the kin40k loader and kin40k-shaped synthetic data
+    experiments.kin40k     the kin40k training run on the card
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

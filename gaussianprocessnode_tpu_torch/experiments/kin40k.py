@@ -1,0 +1,145 @@
+"""kin40k large-scale regression with the fast trainer, on the card.
+
+Counterpart of ``experiments/kin40k.py::run`` (fast path), in one process
+and without ``chunked_run``: N = 10,000 training and 30,000 test points
+in 8-D, M = 600 inducing inputs drawn from the training rows, minibatches
+of 500 (20 batches), w fixed at 1e4, ARD-SE kernel (9 θ, softplus) through
+the hand-written CUDA Gram, ``fit_kin40k_fast`` for ``--epochs`` epochs,
+then the predictive means at the test inputs and their SMSE.
+
+    python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500
+
+prints one JSON line: ``value`` (seconds for the epochs, host clock
+between two ``torch.cuda.synchronize()`` calls), ``smse``, ``device`` (the
+card's name and power limit from nvidia-smi), ``gram_launches`` (kernel
+launches during the epochs) and ``data``. ``--data synthetic`` (the
+default) trains on ``utils/datasets.py::kin40k_synthetic`` data from
+``--seed``; ``--data kin40k`` reads the kin40k files and raises where they
+are absent.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..dists import MvGaussianNat
+from ..infer.batch_vmp import predict_out
+from ..infer.minibatch import fit_kin40k_fast
+from ..ops.kernels import Kernel, invsoftplus
+from ..ops.linalg import ir_solve, sym
+from ..ops.se_gram import se_gram_cuda
+from ..utils.datasets import kin40k, kin40k_synthetic
+from ..utils.metrics import smse
+from ..utils.profiling import synchronize
+
+__all__ = ["W_VAL", "load_data", "setup", "run", "card_info"]
+
+W_VAL = 1e4  # kin40k's fixed noise precision
+
+
+def load_data(data: str = "synthetic", seed: int = 1, n_test: int = 30_000):
+    """The training and test data: ``"synthetic"`` (from ``seed``) or
+    ``"kin40k"`` (the reference's files, which must be present)."""
+    if data == "synthetic":
+        return kin40k_synthetic(seed, n_test=n_test)
+    if data == "kin40k":
+        return kin40k()
+    raise ValueError(f"data must be 'synthetic' or 'kin40k', not {data!r}")
+
+
+def setup(ds, m_inducing=600, batch_size=500, n_train=10_000, seed=1, device="cuda"):
+    """The trainer's arguments, as ``experiments/kin40k.py::run`` builds
+    them for its fast path: batched training data, M inducing inputs drawn
+    from the training rows by ``seed``, θ0 = softplus⁻¹(1), the prior
+    N(0, 50·I) on v, made in float32 on ``device``."""
+    dev, dtype = torch.device(device), torch.float32
+    Xtr = torch.as_tensor(ds.x_train[:n_train], dtype=dtype, device=dev)
+    ytr = torch.as_tensor(ds.y_train[:n_train], dtype=dtype, device=dev)
+    pos = np.random.default_rng(seed).permutation(n_train)[:m_inducing]
+    Xu = torch.as_tensor(ds.x_train[pos], dtype=dtype, device=dev)
+    B = n_train // batch_size
+    Xb = Xtr[: B * batch_size].reshape(B, batch_size, -1)
+    yb = ytr[: B * batch_size].reshape(B, batch_size)
+    theta0 = invsoftplus(torch.ones(1 + Xtr.shape[1], dtype=dtype, device=dev))
+    prior_v = MvGaussianNat(torch.zeros(m_inducing, dtype=dtype, device=dev),
+                            torch.eye(m_inducing, dtype=dtype, device=dev) / 50.0)
+    return theta0, Xu, Xb, yb, prior_v
+
+
+def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
+    """Predictive means at ``X_test``: μ_v from the trained (ξ, Λ) by
+    iterative refinement on the trainer's warm inverse, then K(Xu, X)ᵀμ_v
+    in θ's dtype."""
+    prec = sym(qv_nat.prec)
+    mu_v = ir_solve(prec, qv_nat.xi, cov64, rounds=4).to(theta.dtype)
+    w = torch.full((), W_VAL, dtype=torch.float64, device=theta.device)
+    mean, _ = predict_out(kernel, theta, Xu, X_test, mu_v, w)
+    return mean
+
+
+def card_info() -> dict:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    name, limit = (s.strip() for s in out.stdout.strip().splitlines()[0].split(","))
+    return {"name": name, "power_limit": limit,
+            "torch_name": torch.cuda.get_device_name(0)}
+
+
+def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
+        n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
+        data: str = "synthetic", device: str = "cuda") -> dict:
+    """Train θ in float32 for ``epochs`` epochs (learning rate 1e-3, one
+    statistics refresh per epoch) and score the test set. Returns the
+    result dict that the command line prints."""
+    dev = torch.device(device)
+    ds = load_data(data, seed, n_test)
+    theta0, Xu, Xb, yb, prior_v = setup(ds, m_inducing, batch_size, n_train, seed, dev)
+    kernel = Kernel("se", transform="softplus", use_kernel=True)
+    if dev.type == "cuda":
+        from ..ops.se_gram import _kernel_fn
+
+        _kernel_fn()  # build and load the kernel before the clock starts
+    synchronize(dev)
+    se_gram_cuda.launches = 0
+    t0 = time.perf_counter()
+    theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,
+                                              W_VAL, epochs)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = se_gram_cuda.launches
+    X_test = torch.as_tensor(ds.x_test, dtype=torch.float32, device=dev)
+    mean = predict(kernel, theta, Xu, qv_nat, cov64, X_test)
+    score = float(smse(torch.as_tensor(ds.y_test), mean.cpu().double()))
+    return {
+        "metric": "kin40k_train_wallclock",
+        "value": seconds,
+        "unit": "s",
+        "epochs": epochs,
+        "smse": score,
+        "device": card_info() if dev.type == "cuda" else {"name": str(dev)},
+        "gram_launches": launches,
+        "data": data,
+        "seed": seed,
+        "theta_softplus": torch.logaddexp(theta, torch.zeros_like(theta)).tolist(),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--epochs", type=int, default=500)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--data", choices=("synthetic", "kin40k"), default="synthetic")
+    args = ap.parse_args(argv)
+    out = run(epochs=args.epochs, seed=args.seed, data=args.data)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

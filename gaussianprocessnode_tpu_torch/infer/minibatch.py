@@ -1,0 +1,359 @@
+"""Minibatched sparse-GP training with warm-started q(v): the kin40k fast
+trainer.
+
+Counterpart of ``gaussianprocessnode_tpu/infer/minibatch.py``, fast path.
+Per epoch, q(v) resets to the prior and takes one grand natural-parameter
+update per statistics group (one f32 Gram K(Xu, X), the products in f64, a
+warm-started spectrum-scaled Newton–Schulz inverse and iterative
+refinement), then AdaMax θ-steps in the working dtype against the frozen
+statistics, each on ``objectives.neg_log_backwardmess_gram``.
+
+Where the JAX package runs the whole training as one jitted ``lax.scan``,
+this is an eager Python loop, written so that an epoch never waits on the
+host: the loops have fixed counts (``tol=None``), every guard is a
+``torch.where``, the optimizer's step count and learning rate stay device
+tensors, and θ, the optimizer state and the warm starts are updated in
+place. That also makes a θ-step or an epoch capturable in a CUDA graph.
+"""
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from .. import config
+from ..dists import MvGaussianNat
+from ..objectives import neg_log_backwardmess_gram
+from ..ops.linalg import (effective_jitter, gershgorin_lambda_min, ir_solve,
+                          spd_inverse, sym)
+
+__all__ = [
+    "NS_ITERS_WARMUP",
+    "NS_ITERS_STEADY",
+    "REFRESH_NS_ITERS_SCALED",
+    "AdaMaxChain",
+    "FastCarry",
+    "default_optimizer",
+    "fast_epoch_steps",
+    "fast_optimizer",
+    "fit_kin40k_fast",
+    "init_kin40k_fast_state",
+    "make_theta_step",
+    "qv_grand_update",
+]
+
+# Newton–Schulz budgets, as the JAX package's: warm starts make a few
+# iterations enough in steady state; the per-epoch refresh of the fast
+# trainer runs the spectrum-scaled iteration, which reaches the f64 floor at
+# κ ~ 1e9–1e12 in ~22–24 iterations, so 28 keeps a margin.
+NS_ITERS_WARMUP = 40
+NS_ITERS_STEADY = 8
+REFRESH_NS_ITERS_SCALED = 28
+
+_INT32_MAX = 2**31 - 1
+# optax.adamax's defaults and the chain's clipping norm
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+_MAX_NORM = 1e8
+
+
+def _identity(x):
+    return x
+
+
+def qv_grand_update(Kall64, y64, xi, prec, w64, cov_warm, ns_iters,
+                    ns_tol=None, reduce=_identity, lambda_min=None):
+    """One grand natural-parameter update of q(v) and its refresh:
+
+        ξ ← ξ + w·reduce(K y),  Λ ← sym(Λ + w·reduce(K Kᵀ)),
+        Σ = NS⁻¹(Λ) warm-started,  μ = IR-solve(Λ, ξ; Σ, 2 rounds).
+
+    ``reduce`` is the identity on one device; a data-parallel trainer puts
+    its all-reduce there (both increments are sums over the points).
+    ``lambda_min``: a rigorous λ_min bound on Λ (that of the prior, since
+    Λ ⪰ Λ_prior), which turns on the optimally scaled iteration.
+    Returns ``(ξ, Λ, Σ, μ)``."""
+    xi = xi + w64 * reduce(torch.matmul(Kall64, y64))
+    prec = sym(prec + w64 * reduce(torch.matmul(Kall64, Kall64.T)))
+    cov64 = spd_inverse(prec, warm=cov_warm, iters=ns_iters, tol=ns_tol,
+                        lambda_min=lambda_min)
+    mu64 = ir_solve(prec, xi, cov64, rounds=2)
+    return xi, prec, cov64, mu64
+
+
+@dataclass(frozen=True)
+class AdaMaxChain:
+    """The trainers' optimizer, optax's chain ``zero_nans`` →
+    ``clip_by_global_norm(1e8)`` → ``adamax(lr)`` (b1 0.9, b2 0.999, eps
+    1e-8; optax 0.2.6) written out by hand, with an optional
+    ``exponential_decay`` of the learning rate over ``transition_steps``
+    steps.
+
+    Its state is a dict of tensors that maps one to one onto the optax
+    state: ``found_nan`` (zero_nans), ``count``, ``mu``, ``nu`` (adamax's
+    ScaleByAdamState) and, with a decaying rate, ``lr_count`` (the
+    schedule's ScaleByScheduleState). The step count and the learning rate
+    stay on the device. The scalars keep optax's dtypes: 1 − b1^count is
+    formed in the default float dtype (``config.default_dtype()``; float64
+    with JAX's x64 on) and the decayed rate in float32; both are then cast
+    to the parameters' dtype."""
+
+    learning_rate: float = 1e-3
+    decay_rate: float = 1.0
+    transition_steps: int = 1
+
+    @property
+    def decays(self) -> bool:
+        return self.decay_rate != 1.0
+
+    def init(self, params: torch.Tensor) -> dict:
+        dev = params.device
+        state = {
+            "found_nan": torch.zeros((), dtype=torch.bool, device=dev),
+            "count": torch.zeros((), dtype=torch.int32, device=dev),
+            "mu": torch.zeros_like(params),
+            "nu": torch.zeros_like(params),
+        }
+        if self.decays:
+            state["lr_count"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return state
+
+    def learning_rate_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The learning rate of step ``count`` (an int32 device tensor):
+        optax.exponential_decay with no transition_begin, no staircase and
+        no end value. Float32 whatever ``config.default_dtype()`` is, as
+        optax forms it: JAX divides an int32 count in float32."""
+        c = count.to(torch.float32)
+        decayed = self.learning_rate * torch.pow(self.decay_rate, c / self.transition_steps)
+        return torch.where(count <= 0, torch.full_like(c, self.learning_rate), decayed)
+
+    def update_(self, grads: torch.Tensor, state: dict) -> torch.Tensor:
+        """One step of the chain on ``grads``: writes the new state into
+        ``state``'s tensors and returns the updates (to add to θ)."""
+        sdt = config.default_dtype()
+        # zero_nans
+        nan = torch.isnan(grads)
+        state["found_nan"].copy_(torch.any(nan))
+        g = torch.where(nan, torch.zeros_like(grads), grads)
+        # clip_by_global_norm
+        g_norm = torch.sqrt(torch.sum(g * g))
+        g = torch.where(g_norm < _MAX_NORM, g, (g / g_norm) * _MAX_NORM)
+        # scale_by_adamax
+        count = state["count"]
+        count.copy_(torch.where(count < _INT32_MAX, count + 1, count))
+        mu, nu = state["mu"], state["nu"]
+        mu.copy_((1 - _B1) * g + _B1 * mu)
+        nu.copy_(torch.maximum(torch.abs(g) + _EPS, _B2 * nu))
+        bias = (1 - torch.pow(_B1, count.to(sdt))).to(mu.dtype)
+        upd = (mu / bias) / nu
+        # scale_by_learning_rate
+        if self.decays:
+            lr_count = state["lr_count"]
+            step = (-self.learning_rate_at(lr_count)).to(upd.dtype)
+            lr_count.copy_(torch.where(lr_count < _INT32_MAX, lr_count + 1, lr_count))
+            return step * upd
+        return (-self.learning_rate) * upd
+
+
+def default_optimizer(learning_rate=1e-3) -> AdaMaxChain:
+    """The trainers' shared chain: zero_nans and the clipping keep a single
+    inf/NaN gradient from freezing AdaMax's max-accumulator at inf."""
+    return AdaMaxChain(learning_rate=learning_rate)
+
+
+def fast_optimizer(learning_rate=1e-3, lr_decay_rate=1.0, epochs=1,
+                   n_batches=1) -> AdaMaxChain:
+    """The chain :func:`fit_kin40k_fast` builds for a schedule: a constant
+    rate, or one decaying by ``lr_decay_rate`` over ``epochs·n_batches``
+    steps."""
+    if lr_decay_rate != 1.0:
+        return AdaMaxChain(learning_rate=learning_rate, decay_rate=lr_decay_rate,
+                           transition_steps=epochs * n_batches)
+    return default_optimizer(learning_rate)
+
+
+def make_theta_step(grad_one, optimizer: AdaMaxChain, reduce=_identity):
+    """The AdaMax θ-step against frozen epoch statistics.
+
+    ``grad_one(theta, kuu_warm, batch) -> (grad, kuu_inv)`` computes the
+    objective's gradient for one minibatch; ``reduce`` folds per-shard
+    gradients into the full-batch one (identity on one device). The
+    returned ``theta_step(theta, opt_state, kuu_inv, batch)`` updates θ,
+    the optimizer state and the warm Kuu⁻¹ in place."""
+
+    def theta_step(theta, opt_state, kuu_inv, batch):
+        g, kw = grad_one(theta, kuu_inv, batch)
+        g = reduce(g)
+        theta.add_(optimizer.update_(g, opt_state))
+        kuu_inv.copy_(kw)
+
+    return theta_step
+
+
+class FastCarry(NamedTuple):
+    """The fast trainer's state between epochs, field for field the JAX
+    carry: q(v)'s natural parameters after the last epoch, one warm
+    Newton–Schulz estimate of Λ⁻¹ per statistics group, θ, the optimizer
+    state and the warm Kuu⁻¹."""
+
+    xi: torch.Tensor
+    prec: torch.Tensor
+    covs64: torch.Tensor
+    theta: torch.Tensor
+    opt_state: dict
+    kuu_inv: torch.Tensor
+
+
+def _acc_dtype(obj_dt):
+    return torch.float64 if config.default_dtype() == torch.float64 else obj_dt
+
+
+def init_kin40k_fast_state(theta0, prior_v: MvGaussianNat, M, groups,
+                           optimizer=None, acc_dt=None, obj_dt=None,
+                           learning_rate=1e-3, lr_decay_rate=1.0, epochs=1,
+                           n_batches=1) -> FastCarry:
+    """Initial carry for :func:`fit_kin40k_fast`, on θ0's device: q(v) at
+    the prior in the accumulation dtype (float64 unless
+    ``config.default_dtype()`` is float32), zero warm starts (which the
+    guard rejects, so the first inverses start cold), and the state of the
+    same optimizer chain the trainer builds for the schedule."""
+    if optimizer is None:
+        optimizer = fast_optimizer(learning_rate, lr_decay_rate, epochs, n_batches)
+    obj_dt = theta0.dtype if obj_dt is None else obj_dt
+    acc_dt = _acc_dtype(obj_dt) if acc_dt is None else acc_dt
+    dev = theta0.device
+    theta0 = theta0.to(obj_dt).clone()
+    return FastCarry(
+        prior_v.xi.to(device=dev, dtype=acc_dt),
+        prior_v.prec.to(device=dev, dtype=acc_dt),
+        torch.zeros((groups, M, M), dtype=acc_dt, device=dev),
+        theta0,
+        optimizer.init(theta0),
+        torch.zeros((M, M), dtype=obj_dt, device=dev),
+    )
+
+
+def _clone_carry(c: FastCarry) -> FastCarry:
+    return FastCarry(c.xi.clone(), c.prec.clone(), c.covs64.clone(), c.theta.clone(),
+                     {k: v.clone() for k, v in c.opt_state.items()}, c.kuu_inv.clone())
+
+
+def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMaxChain,
+                     dt, refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+                     refresh_ns_tol: float | None = None, obj_ns_iters: int = 12,
+                     obj_ns_tol: float | None = None):
+    """The two steps of a :func:`fit_kin40k_fast` epoch, for θ of dtype
+    ``dt``, as functions (so each can also be timed alone):
+
+    - ``statistics_refresh(theta, xi, prec, cov_warm, Xg, yg) -> (ξ, Λ, Σ,
+      μ_v, Rv)``: one Gram K(Xu, Xg) in ``dt``, cast to the accumulation
+      dtype (float64 unless ``config.default_dtype()`` is float32; an f32
+      product would make Λ indefinite), and ``qv_grand_update`` with the
+      prior's λ_min bound; μ_v and Rv = Σ + μμᵀ come back in ``dt``;
+    - ``theta_step(theta, opt_state, kuu_inv, (Xb, yb, mu_v, Rv))``: one
+      AdaMax step on ``neg_log_backwardmess_gram`` with Kuu jittered by
+      ``effective_jitter(dt)``, in place."""
+    acc_dt = _acc_dtype(dt)
+    kuu_jit = effective_jitter(dt)
+    # rigorous λ_min bound for every epoch's Λ (⪰ the prior precision)
+    lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
+
+    @torch.no_grad()
+    def statistics_refresh(theta, xi, prec, cov_warm, Xg, yg):
+        Kall = kernel(theta, Xu, Xg).to(acc_dt)
+        xi, prec, cov64, mu64 = qv_grand_update(
+            Kall, yg.to(acc_dt), xi, prec, w_val, cov_warm, refresh_ns_iters,
+            ns_tol=refresh_ns_tol, lambda_min=lam_v)
+        return xi, prec, cov64, mu64.to(dt), (cov64 + torch.outer(mu64, mu64)).to(dt)
+
+    def grad_one(th, kw, batch):
+        Xb, yb, mu_v, Rv = batch
+        th = th.detach().requires_grad_(True)
+        loss, kuu_inv = neg_log_backwardmess_gram(
+            th, kernel=kernel, Xu=Xu, X=Xb, y=yb, mu_v=mu_v, Rv=Rv, w=w_val,
+            kuu_inv_warm=kw, ns_iters=obj_ns_iters, ns_tol=obj_ns_tol,
+            kuu_jitter=kuu_jit,
+        )
+        (g,) = torch.autograd.grad(loss, th)
+        return g, kuu_inv
+
+    return statistics_refresh, make_theta_step(grad_one, optimizer)
+
+
+def fit_kin40k_fast(
+    kernel,
+    theta0,
+    Xu,
+    X_batched,  # (B, batch, Din)
+    y_batched,  # (B, batch)
+    prior_v: MvGaussianNat,
+    w_val: float,
+    epochs: int,
+    learning_rate: float = 0.001,
+    lr_decay_rate: float = 1.0,
+    stats_refreshes: int = 1,
+    resume_state: FastCarry | None = None,
+    refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+    refresh_ns_tol: float | None = None,
+    obj_ns_iters: int = 12,
+    obj_ns_tol: float | None = None,
+):
+    """Epoch-granular kin40k trainer (the benchmark's fast path), on the
+    device of its tensors.
+
+    ``stats_refreshes``: q(v) statistics refreshes per epoch, i.e. groups
+    of batches (1 = one grand update per epoch; B = per-batch freshness);
+    it must divide the batch count B. ``lr_decay_rate``: exponential decay
+    of the learning rate over the whole run (1.0 = constant).
+    ``resume_state``: a carry from an earlier call (or from
+    ``convert.fast_state_from_jax``); it is copied, not changed.
+
+    Per epoch, q(v) restarts from the prior; per group, one
+    ``statistics_refresh`` warm-started from the same group's inverse of
+    the previous epoch, then one ``theta_step`` per batch of the group
+    (:func:`fast_epoch_steps`). With ``obj_ns_tol`` or ``refresh_ns_tol``
+    set, the Newton–Schulz loops exit early, which reads a residual on the
+    host each iteration.
+
+    Returns ``(theta, MvGaussianNat(ξ, Λ), Σ of the last group, carry)``."""
+    B = X_batched.shape[0]
+    optimizer = fast_optimizer(learning_rate, lr_decay_rate, epochs, B)
+    M = Xu.shape[0]
+    dt = theta0.dtype
+    groups = max(1, min(stats_refreshes, B))
+    if B % groups != 0:
+        raise ValueError(
+            f"stats_refreshes={stats_refreshes} does not divide the batch "
+            f"count B={B}: the trailing {B % groups} batches would be "
+            "silently dropped from the statistics and θ-steps"
+        )
+    gsz = B // groups
+    nb = X_batched.shape[1]
+    Xg = X_batched.reshape(groups, gsz * nb, -1)
+    yg = y_batched.reshape(groups, gsz * nb)
+    Xbg = X_batched.reshape(groups, gsz, *X_batched.shape[1:])
+    ybg = y_batched.reshape(groups, gsz, *y_batched.shape[1:])
+    refresh, theta_step = fast_epoch_steps(
+        kernel, Xu, prior_v, w_val, optimizer, dt, refresh_ns_iters=refresh_ns_iters,
+        refresh_ns_tol=refresh_ns_tol, obj_ns_iters=obj_ns_iters, obj_ns_tol=obj_ns_tol)
+
+    if resume_state is None:
+        carry = init_kin40k_fast_state(theta0, prior_v, M, groups, optimizer=optimizer)
+    else:
+        carry = _clone_carry(resume_state)
+    xi, prec, covs64, theta, opt_state, kuu_inv = carry
+    acc_dt = covs64.dtype
+    xi_prior, prec_prior = prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt)
+
+    for _ in range(epochs):
+        # q(v) resets to the prior each epoch (regression_kin40k.ipynb
+        # cell 9) and accumulates group by group
+        xi, prec = xi_prior, prec_prior
+        for gi in range(groups):
+            xi, prec, cov64, mu_v, Rv = refresh(theta, xi, prec, covs64[gi], Xg[gi], yg[gi])
+            covs64[gi].copy_(cov64)
+            for b in range(gsz):
+                theta_step(theta, opt_state, kuu_inv, (Xbg[gi, b], ybg[gi, b], mu_v, Rv))
+
+    carry = FastCarry(xi, prec, covs64, theta, opt_state, kuu_inv)
+    # the last group's inverse is the full-posterior estimate callers expect
+    return theta, MvGaussianNat(xi, prec), covs64[-1], carry

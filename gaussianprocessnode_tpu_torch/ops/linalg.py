@@ -1,8 +1,10 @@
-"""Dense linear-algebra primitives (L0 layer), serving-path subset.
+"""Dense linear-algebra primitives (L0 layer), serving and fast-trainer
+subset.
 
-Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: the matmul-only
-Newton–Schulz SPD inverse and mixed-precision iterative refinement that
-recover μ_v from a trainer's natural parameters. Every product is a plain
+Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: the dtype-aware
+jitter, the matmul-only Newton–Schulz SPD inverse (plain, and as an
+autograd Function with the analytic VJP) and mixed-precision iterative
+refinement. Every product is a plain
 ``torch.matmul``, as the JAX package leaves them to XLA; ``config`` keeps
 TF32 off so float32 products are full precision. Every guard is branchless
 (``torch.where`` on tensors), so the fixed-count loops never wait on the
@@ -11,7 +13,17 @@ host; only the ``tol`` early exit reads its residual on the host.
 
 import torch
 
-__all__ = ["sym", "gershgorin_lambda_min", "spd_inverse_ns", "ir_solve"]
+from ..config import JITTER_KUU
+
+__all__ = ["effective_jitter", "sym", "gershgorin_lambda_min", "spd_inverse_ns",
+           "spd_inverse", "ir_solve"]
+
+
+def effective_jitter(dtype, base: float = JITTER_KUU) -> float:
+    """Dtype-aware jitter: max(base, 300·ε), so 3.58e-5 in float32, where
+    the reference's 1e-8 is below the resolution and would leave Kuu of
+    near-duplicate inducing inputs exactly singular."""
+    return max(base, 300.0 * float(torch.finfo(dtype).eps))
 
 
 def sym(A: torch.Tensor) -> torch.Tensor:
@@ -104,6 +116,42 @@ def spd_inverse_ns(
             X, rnorm, a, b = step(X, a, b)
             k += 1
     return sym(X)
+
+
+class _SPDInverse(torch.autograd.Function):
+    """``spd_inverse_ns`` forward; the inverse-function VJP on the primal
+    output, Ā = −X·Ḡ·X (two matmuls, no differentiation through the
+    iteration), and no gradient for the warm start or the λ_min bound."""
+
+    @staticmethod
+    def forward(ctx, A, warm, lam, iters, tol):
+        X = spd_inverse_ns(A, warm, iters, tol=tol, lambda_min=lam)
+        ctx.save_for_backward(X)
+        return X
+
+    @staticmethod
+    def backward(ctx, G):
+        (X,) = ctx.saved_tensors
+        return -torch.matmul(torch.matmul(X, G), X), None, None, None, None
+
+
+def spd_inverse(A: torch.Tensor, warm: torch.Tensor | None = None,
+                iters: int = 30, tol: float | None = None,
+                lambda_min=None) -> torch.Tensor:
+    """Differentiable SPD inverse: Newton–Schulz forward (optimally scaled
+    when a rigorous ``lambda_min`` bound is given), analytic VJP. As in the
+    JAX package, ``warm=None`` becomes zeros, which the warm-start guard
+    rejects, and ``lambda_min=None`` the −1 sentinel, which turns scaling
+    off; both are made on A's device without a host copy."""
+    if warm is None:
+        warm = torch.zeros_like(A)
+    if lambda_min is None:
+        lambda_min = -1.0
+    if isinstance(lambda_min, torch.Tensor):
+        lam = lambda_min.to(A.dtype)
+    else:
+        lam = torch.full((), lambda_min, dtype=A.dtype, device=A.device)
+    return _SPDInverse.apply(A, warm, lam, iters, tol)
 
 
 def ir_solve(A64: torch.Tensor, b64: torch.Tensor, M32: torch.Tensor,

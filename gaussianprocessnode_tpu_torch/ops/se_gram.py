@@ -9,10 +9,11 @@ kernel ``_gram_kernel`` and the wrappers ``se_gram_pallas`` /
   CPU tensors;
 - ``se_gram_reference``: the plain PyTorch version, the same expanded-form
   arithmetic; the CPU path, and the yardstick of correctness on the card;
-- ``se_gram_auto``: the kernel for float32 Grams on the card, the plain
-  ``ops.kernels.se_gram`` for CPU tensors and any other dtype, chosen
+- ``se_gram_auto``: the kernel when Z and X are both float32 on the card
+  (σ² and ℓ cast to float32, Z and X made contiguous), the plain
+  ``ops.kernels.se_gram`` for CPU tensors and any other dtype pair, chosen
   before the call (``se_gram_route``), as ``pallas_gram.se_gram_auto``
-  keeps f64 off its Pallas kernel;
+  keeps every other dtype off its Pallas kernel;
 - ``se_gram_fused``: a ``torch.autograd.Function`` with ``se_gram_auto`` as
   forward and the analytic matmul-only VJP of ``_se_gram_bwd``.
 
@@ -125,13 +126,16 @@ def se_gram_cuda(Z, X, variance, lengthscales):
 se_gram_cuda.launches = 0
 
 
-def se_gram_route(device, dtype) -> str:
-    """Where ``se_gram_auto`` sends a Gram of ``dtype`` inputs on ``device``:
-    ``"kernel"`` (the CUDA kernel) for float32 on a CUDA card, ``"plain"``
-    (``ops.kernels.se_gram``) for CPU tensors and for any other dtype. A
-    float32 Gram on another device has no route and raises."""
+def se_gram_route(device, z_dtype, x_dtype=None) -> str:
+    """Where ``se_gram_auto`` sends a Gram of Z and X of these dtypes on
+    ``device``: ``"kernel"`` (the CUDA kernel) when both are float32 on a
+    CUDA card, as ``pallas_gram.se_gram_auto`` checks both; ``"plain"``
+    (``ops.kernels.se_gram``) for CPU tensors and for any other dtype pair.
+    ``x_dtype`` defaults to ``z_dtype``. A float32 Gram on another device
+    has no route and raises."""
     device = torch.device(device)
-    if dtype != torch.float32:
+    x_dtype = z_dtype if x_dtype is None else x_dtype
+    if z_dtype != torch.float32 or x_dtype != torch.float32:
         return "plain"
     if device.type == "cuda":
         return "kernel"
@@ -141,13 +145,17 @@ def se_gram_route(device, dtype) -> str:
 
 
 def se_gram_auto(Z, X, variance, lengthscales):
-    """SE Gram K(Z, X) by ``se_gram_route``, decided before the call: float32
-    Z and X on a CUDA card go to the kernel (``se_gram_cuda``), anything
-    else to the plain ``ops.kernels.se_gram`` in its own dtype
-    (``pallas_gram.se_gram_auto`` takes its kernel for float32 only, too)."""
-    route = se_gram_route(Z.device, torch.promote_types(Z.dtype, X.dtype))
-    if route == "kernel":
-        return se_gram_cuda(Z, X, variance, lengthscales)
+    """SE Gram K(Z, X) by ``se_gram_route``, decided before the call.
+    Float32 Z and X on a CUDA card go to the kernel (``se_gram_cuda``)
+    with σ² and ℓ cast to float32 and Z and X made contiguous, so the
+    result differs from the JAX kernel path, which rounds Z/ℓ and X/ℓ to
+    float32, by at most one float32 rounding of ℓ. Anything else takes the
+    plain ``ops.kernels.se_gram`` in its own promoted dtype."""
+    if se_gram_route(Z.device, Z.dtype, X.dtype) == "kernel":
+        f32 = torch.float32
+        return se_gram_cuda(Z.contiguous(), X.contiguous(),
+                            variance.to(f32),
+                            lengthscales.to(f32).contiguous())
     return _k.se_gram(Z, X, variance, lengthscales)
 
 
@@ -159,7 +167,10 @@ class _SEGramFused(torch.autograd.Function):
         ℓ̄_k  = (1/ℓ_k³)·[⟨r, z_k²⟩ + ⟨c, x_k²⟩ − 2 z_kᵀ W x_k]
         Z̄_mk = −(z_mk r_m − (W X)_mk)/ℓ_k²,   X̄ symmetric
 
-    (``pallas_gram.py::_se_gram_bwd``), as torch.matmul GEMMs."""
+    (``pallas_gram.py::_se_gram_bwd``), as torch.matmul GEMMs. Each
+    cotangent comes back in its own input's dtype; Z̄ and X̄ are computed
+    only when Z or X needs a gradient (the θ-steps differentiate σ² and ℓ
+    alone)."""
 
     @staticmethod
     def forward(ctx, Z, X, variance, lengthscales):
@@ -170,20 +181,28 @@ class _SEGramFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, G):
         Z, X, variance, lengthscales, K = ctx.saved_tensors
+        need_z, need_x = ctx.needs_input_grad[:2]
         ls = lengthscales.to(Z.dtype).reshape(-1).expand(Z.shape[1])
         W = G * K
+        # products in the promoted dtype, as jnp.matmul promotes its operands
+        dt = torch.promote_types(W.dtype, Z.dtype)
+        W = W.to(dt)
         r = torch.sum(W, dim=1)
         c = torch.sum(W, dim=0)
         var_bar = torch.sum(W) / variance
-        WX = torch.matmul(W, X)
-        WtZ = torch.matmul(W.T, Z)
+        WX = torch.matmul(W, X.to(dt))
         cross = torch.sum(Z * WX, dim=0)
-        ls_bar = (r @ (Z * Z) + c @ (X * X) - 2.0 * cross) / ls**3
-        Z_bar = -(Z * r[:, None] - WX) / ls**2
-        X_bar = -(X * c[:, None] - WtZ) / ls**2
+        ls_bar = (r @ (Z * Z).to(dt) + c @ (X * X).to(dt) - 2.0 * cross) / ls**3
+        Z_bar = X_bar = None
+        if need_z:
+            Z_bar = (-(Z * r[:, None] - WX) / ls**2).to(Z.dtype)
+        if need_x:
+            WtZ = torch.matmul(W.T, Z.to(dt))
+            X_bar = (-(X * c[:, None] - WtZ) / ls**2).to(X.dtype)
         if ls_bar.shape != lengthscales.shape:
             ls_bar = torch.sum(ls_bar).reshape(lengthscales.shape)
-        return Z_bar, X_bar, var_bar.reshape(variance.shape), ls_bar
+        return (Z_bar, X_bar, var_bar.reshape(variance.shape).to(variance.dtype),
+                ls_bar.to(lengthscales.dtype))
 
 
 def se_gram_fused(Z, X, variance, lengthscales):

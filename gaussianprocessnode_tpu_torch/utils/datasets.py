@@ -1,0 +1,78 @@
+"""Dataset loaders and synthetic-data generators (L7 layer), kin40k subset.
+
+Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
+scipy only. The port keeps its own copy of the loader: importing the JAX
+package's module would run that package's ``__init__``, which imports jax.
+"""
+
+import os
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+
+__all__ = ["REFERENCE_ROOT", "Dataset", "kin40k", "kin40k_synthetic"]
+
+_REPO = Path(__file__).resolve().parents[2]
+# the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
+# repository
+REFERENCE_ROOT = os.environ.get("GPNODE_REFERENCE_DATA", str(_REPO / "reference"))
+
+# the committed trained kin40k state (θ, ξ, Λ), the synthetic data's source
+_TRAINED = _REPO / "benchmarks" / "kin40k_refxu_trained.npz"
+_N_TRAIN = 10_000
+_NOISE_PRECISION = 1e4  # kin40k's w
+
+
+class Dataset(NamedTuple):
+    x_train: np.ndarray
+    y_train: np.ndarray
+    x_test: np.ndarray
+    y_test: np.ndarray
+
+
+def kin40k(root: str = REFERENCE_ROOT):
+    """kin40k regression: 10k train / 30k test, 8-D
+    (reference: regression_kin40k.ipynb cell 3). Raises FileNotFoundError
+    when the files are absent."""
+    from scipy.io import loadmat
+
+    d = os.path.join(root, "data", "kin40k")
+    xtr = loadmat(os.path.join(d, "kin40k_xtrain.mat"))["xtrain"].astype(np.float64)
+    ytr = loadmat(os.path.join(d, "kin40k_ytrain.mat"))["ytrain"].ravel().astype(np.float64)
+    xte = loadmat(os.path.join(d, "kin40k_xtest.mat"))["xtest"].astype(np.float64)
+    yte = loadmat(os.path.join(d, "kin40k_ytest.mat"))["ytest"].ravel().astype(np.float64)
+    return Dataset(xtr, ytr, xte, yte)
+
+
+def kin40k_synthetic(seed: int = 0, n_test: int = 30_000):
+    """Data of kin40k's shape, for where the kin40k files are absent.
+
+    10,000 training and ``n_test`` test inputs, standard normal in 8-D. The
+    latent function is the mean of
+    the committed trained kin40k model (``benchmarks/kin40k_refxu_trained.npz``:
+    its SE θ and μ_v = Λ⁻¹ξ) placed at 600 standard-normal centres,
+    f(x) = K_θ(C, x)ᵀ μ_v, scaled to unit variance over the training
+    inputs: a fixed smooth function with the trained model's lengthscales.
+    Training targets add N(0, 1/w) noise with kin40k's w = 1e4; test
+    targets are the noise-free f. All draws come from ``seed``."""
+    n_train = _N_TRAIN
+    z = np.load(_TRAINED, allow_pickle=False)
+    theta, xi, prec = z["theta"], z["xi"], z["prec"]
+    sp = np.logaddexp(theta, 0.0)
+    var, ls = sp[0], sp[1:]
+    mu = np.linalg.solve(prec, xi)
+    rng = np.random.default_rng(seed)
+    D = ls.shape[0]
+    C = rng.standard_normal((mu.shape[0], D))
+    X = rng.standard_normal((n_train + n_test, D))
+
+    def f(x):
+        a, b = C / ls, x / ls
+        d2 = np.sum(a * a, 1)[:, None] + np.sum(b * b, 1)[None, :] - 2.0 * a @ b.T
+        return (var * np.exp(-0.5 * np.maximum(d2, 0.0))).T @ mu
+
+    fx = np.concatenate([f(X[i:i + 4096]) for i in range(0, X.shape[0], 4096)])
+    fx = fx / np.std(fx[:n_train])
+    y_train = fx[:n_train] + rng.standard_normal(n_train) / np.sqrt(_NOISE_PRECISION)
+    return Dataset(X[:n_train], y_train, X[n_train:], fx[n_train:])

@@ -5,12 +5,15 @@ returns before the device finishes, so a host clock measures work only
 between two ``synchronize`` calls. ``cuda_time_ms`` puts CUDA events
 around a Python loop of calls, so it also holds each call's host cost
 where that exceeds the device's; ``cuda_graph_time_ms`` replays the calls
-from a CUDA graph, so it holds device time alone.
+from a CUDA graph, so it holds device time alone; ``cuda_kernel_times``
+reads each kernel's device time from a ``torch.profiler`` trace.
 """
+
+import time
 
 import torch
 
-__all__ = ["synchronize", "cuda_time_ms", "cuda_graph_time_ms"]
+__all__ = ["synchronize", "cuda_time_ms", "cuda_graph_time_ms", "cuda_kernel_times"]
 
 
 def synchronize(device=None) -> None:
@@ -66,3 +69,31 @@ def cuda_graph_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_kernel_times(fn, warmup: int = 1):
+    """Device time of one call of ``fn()`` by kernel, from a
+    ``torch.profiler`` trace (CUPTI) of that call after ``warmup`` calls.
+    Returns ``(wall_ms, {kernel name: (launches, device ms)})``: the host
+    clock around the call and its closing synchronisation (the profiler's
+    own cost included), and each kernel's summed device time. The dict is
+    empty where the profiler records no device activity. Raises without a
+    CUDA card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_kernel_times needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = (e.count, e.self_device_time_total / 1e3)
+    return wall_ms, kernels

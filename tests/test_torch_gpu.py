@@ -1,4 +1,5 @@
-"""The port's CUDA kernel and serving path on a CUDA card.
+"""The port's CUDA kernel, its route, and the serving and training paths on
+a CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -177,3 +178,164 @@ def test_serving_on_card_goes_through_kernel_and_matches_cpu():
                          @ h.mu_v.abs() for Xb in X])
     assert float(((m_gpu.cpu() - m_cpu).abs() / scale).max()) <= 1e-5
     assert torch.equal(v_gpu.cpu(), v_cpu)
+
+
+# the kernel route's inputs (se_gram_auto): what it takes, casts and refuses
+
+
+@pytest.mark.gpu
+def test_f32_inputs_with_f64_hyperparameters_take_the_kernel_on_card():
+    """σ² and ℓ in f64 (an f64 θ) beside f32 Z and X: the kernel, with σ²
+    and ℓ rounded to f32 first, equal to the plain f32 Gram on those
+    rounded values within the Gram tolerance."""
+    _need_card()
+    Z, X, var, ls = _case(14, 600, 500, 8, True)
+    Zc, Xc = torch.as_tensor(Z).cuda(), torch.as_tensor(X).cuda()
+    v64 = torch.tensor(float(var), dtype=torch.float64, device="cuda")
+    l64 = torch.as_tensor(ls.astype(np.float64)).cuda()
+    before = sg.se_gram_cuda.launches
+    K = sg.se_gram_auto(Zc, Xc, v64, l64)
+    assert sg.se_gram_cuda.launches == before + 1
+    K_ref = sg.se_gram_reference(Zc, Xc, v64.float(), l64.float())
+    assert K.dtype == torch.float32
+    np.testing.assert_allclose(K.cpu().numpy(), K_ref.cpu().numpy(), rtol=0,
+                               atol=_gram_tol(Z, X, var, ls))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [torch.float16, torch.bfloat16])
+def test_half_beside_f32_takes_the_plain_gram_on_card(half):
+    """A float16 or bfloat16 Z beside a float32 X takes the plain Gram in
+    the promoted dtype, bit for bit, with no kernel launch."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops.kernels import se_gram
+
+    Z, X, var, ls = _case(15, 64, 300, 8, True)
+    Zh = torch.as_tensor(Z).cuda().to(half)
+    args = (torch.as_tensor(X).cuda(), torch.tensor(var).cuda(), torch.as_tensor(ls).cuda())
+    before = sg.se_gram_cuda.launches
+    K = sg.se_gram_auto(Zh, *args)
+    assert sg.se_gram_cuda.launches == before
+    assert K.dtype == torch.float32
+    assert torch.equal(K, se_gram(Zh, *args))
+
+
+@pytest.mark.gpu
+def test_sliced_and_transposed_inputs_take_the_kernel_on_card():
+    """A column slice of a wider X and a transposed Z (neither contiguous)
+    go through the kernel, made contiguous by the route, and equal the
+    plain Gram within the Gram tolerance."""
+    _need_card()
+    Z, X, var, ls = _case(16, 600, 10000, 8, True)
+    wide = np.concatenate([X, np.ones((X.shape[0], 3), np.float32)], axis=1)
+    Xs = torch.as_tensor(wide).cuda()[:, :8]
+    Zt = torch.as_tensor(np.ascontiguousarray(Z.T)).cuda().T
+    assert not Xs.is_contiguous() and not Zt.is_contiguous()
+    vc, lc = torch.tensor(var).cuda(), torch.as_tensor(ls).cuda()
+    before = sg.se_gram_cuda.launches
+    K = sg.se_gram_auto(Zt, Xs, vc, lc)
+    assert sg.se_gram_cuda.launches == before + 1
+    K_ref = sg.se_gram_reference(Zt.contiguous(), Xs.contiguous(), vc, lc)
+    np.testing.assert_allclose(K.cpu().numpy(), K_ref.cpu().numpy(), rtol=0,
+                               atol=_gram_tol(Z, X, var, ls))
+
+
+# the fast trainer on the card
+
+
+def _trainer_inputs(device, M=600, n_train=10000, batch=500, seed=1):
+    from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
+
+    ds = runner.load_data("synthetic", seed, n_test=10)
+    return runner.setup(ds, M, batch, n_train, seed, device)
+
+
+def _objective_grad(use_kernel, theta, Xu, X, y, mu_v, Rv):
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.linalg import effective_jitter
+    from gaussianprocessnode_tpu_torch.objectives import neg_log_backwardmess_gram
+
+    th = theta.clone().requires_grad_(True)
+    loss, kinv = neg_log_backwardmess_gram(
+        th, kernel=Kernel("se", "softplus", use_kernel=use_kernel), Xu=Xu, X=X, y=y,
+        mu_v=mu_v, Rv=Rv, w=1e4, ns_iters=12, kuu_jitter=effective_jitter(torch.float32))
+    (g,) = torch.autograd.grad(loss, th)
+    return loss.detach(), kinv, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("theta_from", ["theta0", "trained"])
+def test_theta_gradient_with_kernel_matches_plain_gram_on_card(theta_from):
+    """The objective at the trainer's shapes (Kuu 600×600, Kux 600×500, f32)
+    with the kernel against the same with the plain Gram, on the card, at θ0
+    and at the committed trained θ: two launches per gradient; the loss,
+    Kuu⁻¹ and the θ-gradient to 1e-3 relative (both sides round the Gram
+    differently by the Gram tolerance, and the 12-iteration f32 inverse
+    carries that with a gain of up to κ(Kuu))."""
+    _need_card()
+    theta0, Xu, Xb, yb, _ = _trainer_inputs("cuda")
+    theta = theta0 if theta_from == "theta0" else torch.as_tensor(
+        np.load(NPZ)["theta"], dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(17)
+    mu_v = torch.as_tensor(rng.standard_normal(600) * 0.1, dtype=torch.float32, device="cuda")
+    A = torch.as_tensor(rng.standard_normal((600, 600)) * 0.01, dtype=torch.float32,
+                        device="cuda")
+    Rv = A @ A.T + torch.outer(mu_v, mu_v)
+    before = sg.se_gram_cuda.launches
+    lk, kk, gk = _objective_grad(True, theta, Xu, Xb[0], yb[0], mu_v, Rv)
+    assert sg.se_gram_cuda.launches == before + 2
+    lp, kp, gp = _objective_grad(False, theta, Xu, Xb[0], yb[0], mu_v, Rv)
+    assert sg.se_gram_cuda.launches == before + 2
+    assert float(abs(lk - lp)) <= 1e-3 * float(abs(lp))
+    assert float(torch.linalg.norm(kk - kp) / torch.linalg.norm(kp)) <= 1e-3
+    assert float(torch.linalg.norm(gk - gp) / torch.linalg.norm(gp)) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_full_width_epoch_on_card_matches_cpu():
+    """One epoch at kin40k width (M = 600, 20 batches of 500, f32 θ, f64
+    statistics) on the card, through the kernel (41 launches), against the
+    same epoch on the CPU with the plain Gram: θ, ξ and Λ to 1e-4 relative
+    (f32 Grams that differ by the Gram tolerance, carried through the f64
+    refresh and 20 AdaMax steps of size ≤ 1e-3)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.minibatch import fit_kin40k_fast
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        theta0, Xu, Xb, yb, prior = _trainer_inputs(dev)
+        sg.se_gram_cuda.launches = 0
+        th, nat, _, _ = fit_kin40k_fast(Kernel("se", "softplus", use_kernel=True), theta0,
+                                        Xu, Xb, yb, prior, 1e4, 1)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sg.se_gram_cuda.launches == 41
+        else:
+            assert sg.se_gram_cuda.launches == 0
+        out[dev] = [t.cpu() for t in (th, nat.xi, nat.prec)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float(torch.linalg.norm(a.double() - b.double())
+                     / torch.linalg.norm(b.double())) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_trainer_epoch_makes_no_host_sync_on_card():
+    """An epoch after the first runs under set_sync_debug_mode("error"): no
+    .item(), no host-side branch on a device value, no pageable copy."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.minibatch import fit_kin40k_fast
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    theta0, Xu, Xb, yb, prior = _trainer_inputs("cuda", M=64, n_train=1000, batch=250)
+    kern = Kernel("se", "softplus", use_kernel=True)
+    _, _, _, carry = fit_kin40k_fast(kern, theta0, Xu, Xb, yb, prior, 1e4, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th, _, _, _ = fit_kin40k_fast(kern, theta0, Xu, Xb, yb, prior, 1e4, 2,
+                                      resume_state=carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(th).all())

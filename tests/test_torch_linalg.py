@@ -127,3 +127,40 @@ def test_ir_solve_matches_jax(good):
         assert np.linalg.norm(A @ got - b) < 1e-3 * np.linalg.norm(A @ x0 - b)
     else:
         np.testing.assert_allclose(got, x0, rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("lambda_min", [None, LAM], ids=["unscaled", "scaled"])
+def test_spd_inverse_forward_and_gradient_match_jax(lambda_min, warm, dtype):
+    """The autograd Function's forward is spd_inverse_ns exactly (zeros for
+    a missing warm start, the −1 sentinel for a missing bound); its VJP
+    Ā = −X·Ḡ·X matches jax.grad through the JAX spd_inverse. κ = 1e3 here,
+    so the forwards agree to 10·κ·ε (as above) and the gradient, two more
+    products of X, to 30·κ·ε; no gradient reaches the warm start."""
+    import jax
+
+    A = _spd(10, n=16, logk=3.0, dtype=dtype)
+    G = np.random.default_rng(11).standard_normal((16, 16)).astype(dtype)
+    w = np.linalg.inv(A + 1e-3 * _spd(12, n=16, logk=0.0)).astype(dtype) if warm else None
+    iters = 6 if warm else 28
+
+    def jloss(a):
+        X = jl.spd_inverse(a, warm=None if w is None else jnp.asarray(w), iters=iters,
+                           lambda_min=lambda_min)
+        return jnp.sum(jnp.asarray(G) * X), X
+
+    (_, jX), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(A))
+    At = torch.tensor(A, requires_grad=True)
+    wt = None if w is None else torch.tensor(w, requires_grad=True)
+    X = tl.spd_inverse(At, warm=wt, iters=iters, lambda_min=lambda_min)
+    ns = tl.spd_inverse_ns(torch.as_tensor(A), warm=None if w is None else torch.as_tensor(w),
+                           iters=iters,
+                           lambda_min=-1.0 if lambda_min is None else lambda_min)
+    assert torch.equal(X.detach(), ns)
+    torch.sum(torch.as_tensor(G) * X).backward()
+    assert wt is None or wt.grad is None
+    eps = np.finfo(dtype).eps
+    assert X.dtype == At.grad.dtype == torch.from_numpy(A).dtype
+    assert _rel(X.detach().numpy(), np.asarray(jX)) <= 10 * 1e3 * eps
+    assert _rel(At.grad.numpy(), np.asarray(jg)) <= 30 * 1e3 * eps

@@ -26,5 +26,13 @@ def test_device_timers_raise_without_card(timer):
         assert calls == []  # refused before any call: no host-clock timing
 
 
+def test_kernel_times_raise_without_card():
+    _need_no_card()
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        profiling.cuda_kernel_times(lambda: calls.append(1))
+    assert calls == []
+
+
 def test_synchronize_is_a_no_op_for_cpu():
     profiling.synchronize("cpu")

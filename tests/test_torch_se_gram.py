@@ -283,3 +283,77 @@ def test_fma_corrected_division_is_correctly_rounded():
         rem = _rn32(F(a) - F(b) * F(q))       # exact: fma(−q, ℓ, a)
         got = _rn32(F(q) + F(rem) * F(r))     # fma(rem, r, q)
         assert got == _rn32(F(a) / F(b)) == float(np.float32(a) / np.float32(b)), (a, b)
+
+
+_DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16]
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("z_dtype", _DTYPES)
+@pytest.mark.parametrize("x_dtype", _DTYPES)
+def test_route_checks_both_dtypes(x_dtype, z_dtype, device):
+    """The kernel only when Z and X are both float32 on a card, as
+    pallas_gram.se_gram_auto checks both dtypes; a mixed pair whose
+    promotion is float32 (f16 or bf16 beside f32) takes the plain Gram."""
+    want = ("kernel" if device == "cuda" and z_dtype == x_dtype == torch.float32
+            else "plain")
+    assert sg.se_gram_route(device, z_dtype, x_dtype) == want
+
+
+def test_vjp_with_f64_hyperparameters_and_f32_inputs_matches_jax():
+    """f64 σ² and ℓ beside f32 Z and X, as an f64 θ gives them: off the
+    card both packages take the plain Gram in the promoted f64, and the
+    analytic VJP rounds ℓ to Z's dtype in both. Each cotangent comes back
+    in its own input's dtype; values to 1e-6 relative (the f32 cotangents
+    of Z and X are JAX's f64 ones rounded to f32) and 1e-10 for σ̄², ℓ̄."""
+    rng = np.random.default_rng(12)
+    Z = rng.standard_normal((9, 4)).astype(np.float32)
+    X = rng.standard_normal((13, 4)).astype(np.float32)
+    var, ls = np.array(1.3), np.array([0.7, 1.1, 1.4, 0.9])
+    G = rng.standard_normal((9, 13))
+
+    def loss(Z, X, v, l):
+        return jnp.sum(jnp.asarray(G) * pg.se_gram_fused(Z, X, v, l))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(Z), jnp.asarray(X), jnp.asarray(var), jnp.asarray(ls))
+    args = [torch.tensor(a, requires_grad=True) for a in (Z, X, var, ls)]
+    K = sg.se_gram_fused(*args)
+    assert K.dtype == torch.float64
+    torch.sum(torch.as_tensor(G) * K).backward()
+    for a, w, rtol in zip(args, want, (1e-6, 1e-6, 1e-10, 1e-10)):
+        assert a.grad.dtype == a.dtype and tuple(a.grad.shape) == a.shape
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=rtol,
+                                   atol=rtol * np.abs(np.asarray(w)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vjp_skips_input_cotangents_not_needed(dtype, monkeypatch):
+    """With Z and X needing no gradient (the θ-steps) the backward leaves out
+    their two GEMMs and returns the same σ̄² and ℓ̄, bit for bit."""
+    rng = np.random.default_rng(13)
+    vals = (rng.standard_normal((8, 3)), rng.standard_normal((11, 3)), np.array(0.9),
+            np.array([0.8, 1.2, 1.5]))
+    G = torch.as_tensor(rng.standard_normal((8, 11)), dtype=dtype)
+    calls = []
+    real_matmul = torch.matmul
+
+    def counting_matmul(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return real_matmul(a, b)
+
+    grads = {}
+    for need_inputs in (True, False):
+        args = [torch.tensor(v, dtype=dtype, requires_grad=(need_inputs or i >= 2))
+                for i, v in enumerate(vals)]
+        K = sg.se_gram_fused(*args)
+        calls.clear()
+        monkeypatch.setattr(torch, "matmul", counting_matmul)
+        torch.sum(G * K).backward()
+        monkeypatch.setattr(torch, "matmul", real_matmul)
+        grads[need_inputs] = (args[2].grad, args[3].grad, len(calls))
+        assert (args[0].grad is not None) == need_inputs
+        assert (args[1].grad is not None) == need_inputs
+    assert torch.equal(grads[True][0], grads[False][0])
+    assert torch.equal(grads[True][1], grads[False][1])
+    assert grads[True][2] == 2 and grads[False][2] == 1

@@ -221,7 +221,11 @@ def test_port_imports_with_jax_unavailable():
             "import gaussianprocessnode_tpu_torch.convert, "
             "gaussianprocessnode_tpu_torch.ops.se_gram, "
             "gaussianprocessnode_tpu_torch.utils.profiling, "
-            "gaussianprocessnode_tpu_torch.utils.metrics; "
+            "gaussianprocessnode_tpu_torch.utils.metrics, "
+            "gaussianprocessnode_tpu_torch.utils.datasets, "
+            "gaussianprocessnode_tpu_torch.objectives, "
+            "gaussianprocessnode_tpu_torch.infer.minibatch, "
+            "gaussianprocessnode_tpu_torch.experiments.kin40k; "
             "import chip_smoke; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
