@@ -1,26 +1,33 @@
 """Carry a trained model's parameters, or a trainer's state, from the JAX
 package into the port.
 
-The JAX package keeps a trained sparse-GP regression model as θ (raw, before
-the kernel's transform), the inducing inputs Xu, the natural parameters
-(ξ, Λ) of q(v) and the noise precision w̄. Given those as numpy arrays (as
+The JAX package keeps a trained sparse-GP model as θ (raw, before the
+kernel's transform), the inducing inputs Xu, the natural parameters (ξ, Λ)
+of q(v), and the noise precision w̄ (regression) or the Gamma q(w)'s shape
+and rate (probit classification). Given those as numpy arrays (as
 ``np.asarray`` of the JAX arrays, or as saved in an ``.npz``),
-:func:`serving_state_from_jax` builds the port's serving handle, so the JAX
-and the torch handle compute the same predictions from one set of arrays.
-:func:`fast_state_from_jax` turns the carry of the JAX ``fit_kin40k_fast``
-into the port's, so the port resumes a JAX run and both compute the same
-next epoch.
+:func:`serving_state_from_jax` and :func:`classifier_state_from_jax` build
+the port's serving handles, so the JAX and the torch handle compute the
+same predictions from one set of arrays. :func:`fast_state_from_jax` and
+:func:`banana_state_from_jax` turn a JAX trainer's carry into the port's,
+so the port resumes a JAX run and both compute the same next epoch.
 """
 
 import numpy as np
 import torch
 
-from .dists import MvGaussianNat
-from .infer.minibatch import FastCarry
+from .dists import GammaShapeRate, MvGaussianNat
+from .infer.minibatch import FastCarry, MinibatchCarry
 from .ops.kernels import Kernel
-from .serve import SGPRegressor
+from .serve import SGPClassifier, SGPRegressor
 
-__all__ = ["serving_state_from_jax", "fast_state_from_jax"]
+__all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
+           "banana_state_from_jax"]
+
+
+def _nat(xi, prec):
+    return MvGaussianNat(torch.as_tensor(np.asarray(xi, np.float64)),
+                         torch.as_tensor(np.asarray(prec, np.float64)))
 
 
 def serving_state_from_jax(theta, Xu, xi, prec, w_mean, *, kind="se",
@@ -29,30 +36,64 @@ def serving_state_from_jax(theta, Xu, xi, prec, w_mean, *, kind="se",
     """An :class:`SGPRegressor` on ``device`` whose Kernel is ``Kernel(kind,
     transform, use_kernel=True)``. μ_v is recovered from (ξ, Λ) in float64;
     θ, Xu and μ_v are then held in ``dtype``."""
-    kernel = Kernel(kind, transform, use_kernel=True)
-    nat = MvGaussianNat(torch.as_tensor(np.asarray(xi, np.float64)),
-                        torch.as_tensor(np.asarray(prec, np.float64)))
     return SGPRegressor.from_natural(
-        kernel, torch.as_tensor(np.asarray(theta, np.float64)),
-        torch.as_tensor(np.asarray(Xu, np.float64)), nat,
+        Kernel(kind, transform, use_kernel=True),
+        torch.as_tensor(np.asarray(theta, np.float64)),
+        torch.as_tensor(np.asarray(Xu, np.float64)), _nat(xi, prec),
         float(w_mean), dtype=dtype, device=device)
+
+
+def classifier_state_from_jax(theta, Xu, xi, prec, w_shape, w_rate, *, kind="se",
+                              transform="softplus", dtype=torch.float32,
+                              device="cuda") -> SGPClassifier:
+    """An :class:`SGPClassifier` on ``device`` whose Kernel is
+    ``Kernel(kind, transform, use_kernel=True)``: μ_v recovered from (ξ, Λ)
+    in float64, w̄ = w_shape/w_rate in their own dtype; θ, Xu and μ_v then
+    held in ``dtype``."""
+    return SGPClassifier.from_natural(
+        Kernel(kind, transform, use_kernel=True),
+        torch.as_tensor(np.asarray(theta, np.float64)),
+        torch.as_tensor(np.asarray(Xu, np.float64)), _nat(xi, prec),
+        GammaShapeRate(np.asarray(w_shape), np.asarray(w_rate)),
+        dtype=dtype, device=device)
+
+
+def _tensor(device):
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+    return t
+
+
+def _optimizer_state(opt_state, t) -> dict:
+    """The port's optimizer dict from the optax state of the trainers'
+    chain, ``(ZeroNansState, EmptyState, (ScaleByAdamState, EmptyState |
+    ScaleByScheduleState))``."""
+    zero_nans, _, (adam, lr_state) = opt_state
+    opt = {"found_nan": t(zero_nans.found_nan), "count": t(adam.count),
+           "mu": t(adam.mu), "nu": t(adam.nu)}
+    if "count" in getattr(lr_state, "_fields", ()):  # a decaying schedule
+        opt["lr_count"] = t(lr_state.count)
+    return opt
 
 
 def fast_state_from_jax(carry, device="cuda") -> FastCarry:
     """The port's ``fit_kin40k_fast`` carry from the JAX one, ``(ξ, Λ,
     covs64, θ, opt_state, kuu_inv)``, with numpy arrays for leaves (as
-    ``jax.tree.map(np.asarray, carry)`` gives it). ``opt_state`` is the
-    optax state of ``fast_optimizer``'s chain, ``(ZeroNansState,
-    EmptyState, (ScaleByAdamState, EmptyState | ScaleByScheduleState))``;
-    its leaves become the port's optimizer dict. Dtypes are kept."""
+    ``jax.tree.map(np.asarray, carry)`` gives it); ``opt_state`` becomes
+    the port's optimizer dict. Dtypes are kept."""
     xi, prec, covs64, theta, opt_state, kuu_inv = carry
-    zero_nans, _, (adam, lr_state) = opt_state
+    t = _tensor(device)
+    return FastCarry(t(xi), t(prec), t(covs64), t(theta), _optimizer_state(opt_state, t),
+                     t(kuu_inv))
 
-    def t(a):
-        return torch.as_tensor(np.array(a), device=device)
 
-    opt = {"found_nan": t(zero_nans.found_nan), "count": t(adam.count),
-           "mu": t(adam.mu), "nu": t(adam.nu)}
-    if "count" in getattr(lr_state, "_fields", ()):  # a decaying schedule
-        opt["lr_count"] = t(lr_state.count)
-    return FastCarry(t(xi), t(prec), t(covs64), t(theta), opt, t(kuu_inv))
+def banana_state_from_jax(carry, device="cuda") -> MinibatchCarry:
+    """The port's :class:`MinibatchCarry` from the JAX ``MinibatchCarry``
+    (of ``fit_banana_fast``, ``fit_banana`` or ``fit_kin40k``), with numpy
+    arrays for leaves: field for field, ``opt_state`` (``default_optimizer``'s
+    chain, ``(ZeroNansState, EmptyState, (ScaleByAdamState, EmptyState))``)
+    as the port's optimizer dict. Dtypes are kept."""
+    xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
+    t = _tensor(device)
+    return MinibatchCarry(t(xi), t(prec), t(cov), t(kuu_inv), t(theta),
+                          _optimizer_state(opt_state, t), t(w_shape), t(w_rate))

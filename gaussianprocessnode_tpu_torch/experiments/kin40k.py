@@ -1,13 +1,17 @@
-"""kin40k large-scale regression with the fast trainer, on the card.
+"""kin40k large-scale regression, on the card.
 
-Counterpart of ``experiments/kin40k.py::run`` (fast path), in one process
-and without ``chunked_run``: N = 10,000 training and 30,000 test points
-in 8-D, M = 600 inducing inputs drawn from the training rows, minibatches
-of 500 (20 batches), w fixed at 1e4, ARD-SE kernel (9 θ, softplus) through
-the hand-written CUDA Gram, ``fit_kin40k_fast`` for ``--epochs`` epochs,
-then the predictive means at the test inputs and their SMSE.
+Counterpart of ``experiments/kin40k.py::run``, in one process and without
+``chunked_run``: N = 10,000 training and 30,000 test points in 8-D,
+M = 600 inducing inputs drawn from the training rows, minibatches of 500
+(20 batches), w fixed at 1e4, ARD-SE kernel (9 θ, softplus) through the
+hand-written CUDA Gram, ``fit_kin40k_fast`` for ``--epochs`` epochs, then
+the predictive means at the test inputs and their SMSE. ``--faithful``
+trains with the per-batch ``fit_kin40k`` instead and, as the JAX runner
+does, in float64, whose Grams take the plain route by dtype
+(``ops/se_gram.py::se_gram_auto``); ``run(faithful=True,
+dtype=torch.float32)`` keeps it in float32, through the kernel.
 
-    python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500
+    python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful]
 
 prints one JSON line: ``value`` (seconds for the epochs, host clock
 between two ``torch.cuda.synchronize()`` calls), ``smse``, ``device`` (the
@@ -28,9 +32,9 @@ import torch
 
 from ..dists import MvGaussianNat
 from ..infer.batch_vmp import predict_out
-from ..infer.minibatch import fit_kin40k_fast
+from ..infer.minibatch import fit_kin40k, fit_kin40k_fast
 from ..ops.kernels import Kernel, invsoftplus
-from ..ops.linalg import ir_solve, sym
+from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
 from ..utils.datasets import kin40k, kin40k_synthetic
 from ..utils.metrics import smse
@@ -51,12 +55,13 @@ def load_data(data: str = "synthetic", seed: int = 1, n_test: int = 30_000):
     raise ValueError(f"data must be 'synthetic' or 'kin40k', not {data!r}")
 
 
-def setup(ds, m_inducing=600, batch_size=500, n_train=10_000, seed=1, device="cuda"):
+def setup(ds, m_inducing=600, batch_size=500, n_train=10_000, seed=1, device="cuda",
+          dtype=torch.float32):
     """The trainer's arguments, as ``experiments/kin40k.py::run`` builds
-    them for its fast path: batched training data, M inducing inputs drawn
-    from the training rows by ``seed``, θ0 = softplus⁻¹(1), the prior
-    N(0, 50·I) on v, made in float32 on ``device``."""
-    dev, dtype = torch.device(device), torch.float32
+    them: batched training data, M inducing inputs drawn from the training
+    rows by ``seed``, θ0 = softplus⁻¹(1), the prior N(0, 50·I) on v, made in
+    ``dtype`` on ``device``."""
+    dev = torch.device(device)
     Xtr = torch.as_tensor(ds.x_train[:n_train], dtype=dtype, device=dev)
     ytr = torch.as_tensor(ds.y_train[:n_train], dtype=dtype, device=dev)
     pos = np.random.default_rng(seed).permutation(n_train)[:m_inducing]
@@ -72,9 +77,12 @@ def setup(ds, m_inducing=600, batch_size=500, n_train=10_000, seed=1, device="cu
 
 def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
     """Predictive means at ``X_test``: μ_v from the trained (ξ, Λ) by
-    iterative refinement on the trainer's warm inverse, then K(Xu, X)ᵀμ_v
-    in θ's dtype."""
+    iterative refinement on the trainer's warm inverse (``cov64``; None
+    computes it, by 60 Newton–Schulz iterations, as the JAX runner does
+    after its faithful trainer), then K(Xu, X)ᵀμ_v in θ's dtype."""
     prec = sym(qv_nat.prec)
+    if cov64 is None:
+        cov64 = spd_inverse_ns(prec, iters=60)
     mu_v = ir_solve(prec, qv_nat.xi, cov64, rounds=4).to(theta.dtype)
     w = torch.full((), W_VAL, dtype=torch.float64, device=theta.device)
     mean, _ = predict_out(kernel, theta, Xu, X_test, mu_v, w)
@@ -93,13 +101,19 @@ def card_info() -> dict:
 
 def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
-        data: str = "synthetic", device: str = "cuda") -> dict:
-    """Train θ in float32 for ``epochs`` epochs (learning rate 1e-3, one
-    statistics refresh per epoch) and score the test set. Returns the
+        data: str = "synthetic", device: str = "cuda", faithful: bool = False,
+        dtype=None) -> dict:
+    """Train θ for ``epochs`` epochs (learning rate 1e-3) with
+    ``fit_kin40k_fast`` (one statistics refresh per epoch) or, with
+    ``faithful``, ``fit_kin40k``, and score the test set. ``dtype``
+    defaults to float32, and to float64 with ``faithful``. Returns the
     result dict that the command line prints."""
     dev = torch.device(device)
+    if dtype is None:
+        dtype = torch.float64 if faithful else torch.float32
     ds = load_data(data, seed, n_test)
-    theta0, Xu, Xb, yb, prior_v = setup(ds, m_inducing, batch_size, n_train, seed, dev)
+    theta0, Xu, Xb, yb, prior_v = setup(ds, m_inducing, batch_size, n_train, seed, dev,
+                                        dtype)
     kernel = Kernel("se", transform="softplus", use_kernel=True)
     if dev.type == "cuda":
         from ..ops.se_gram import _kernel_fn
@@ -108,18 +122,24 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
     synchronize(dev)
     se_gram_cuda.launches = 0
     t0 = time.perf_counter()
-    theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,
-                                              W_VAL, epochs)
+    if faithful:
+        theta, qv_nat, _ = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, epochs)
+        cov64 = None
+    else:
+        theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,
+                                                  W_VAL, epochs)
     synchronize(dev)
     seconds = time.perf_counter() - t0
     launches = se_gram_cuda.launches
-    X_test = torch.as_tensor(ds.x_test, dtype=torch.float32, device=dev)
+    X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
     mean = predict(kernel, theta, Xu, qv_nat, cov64, X_test)
     score = float(smse(torch.as_tensor(ds.y_test), mean.cpu().double()))
     return {
         "metric": "kin40k_train_wallclock",
         "value": seconds,
         "unit": "s",
+        "trainer": "fit_kin40k" if faithful else "fit_kin40k_fast",
+        "dtype": str(dtype).removeprefix("torch."),
         "epochs": epochs,
         "smse": score,
         "device": card_info() if dev.type == "cuda" else {"name": str(dev)},
@@ -135,8 +155,10 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=500)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--data", choices=("synthetic", "kin40k"), default="synthetic")
+    ap.add_argument("--faithful", action="store_true",
+                    help="the per-batch schedule fit_kin40k, in float64")
     args = ap.parse_args(argv)
-    out = run(epochs=args.epochs, seed=args.seed, data=args.data)
+    out = run(epochs=args.epochs, seed=args.seed, data=args.data, faithful=args.faithful)
     print(json.dumps(out), flush=True)
     return 0
 

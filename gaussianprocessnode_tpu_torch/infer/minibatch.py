@@ -1,19 +1,26 @@
-"""Minibatched sparse-GP training with warm-started q(v): the kin40k fast
-trainer.
+"""Minibatched sparse-GP training with warm-started q(v): the kin40k and
+banana trainers.
 
-Counterpart of ``gaussianprocessnode_tpu/infer/minibatch.py``, fast path.
-Per epoch, q(v) resets to the prior and takes one grand natural-parameter
-update per statistics group (one f32 Gram K(Xu, X), the products in f64, a
-warm-started spectrum-scaled Newton–Schulz inverse and iterative
-refinement), then AdaMax θ-steps in the working dtype against the frozen
-statistics, each on ``objectives.neg_log_backwardmess_gram``.
+Counterpart of ``gaussianprocessnode_tpu/infer/minibatch.py``:
+
+- ``fit_kin40k_fast`` / ``fit_banana_fast``, the epoch-granular paths: per
+  epoch one grand natural-parameter update of q(v) per statistics group
+  (one f32 Gram K(Xu, X), the products in f64, a warm-started
+  spectrum-scaled Newton–Schulz inverse and iterative refinement; for
+  banana also the probit tilted marginals and the carried Gamma q(w)), then
+  AdaMax θ-steps in the working dtype against the frozen statistics, each
+  on ``objectives.neg_log_backwardmess_gram``;
+- ``fit_kin40k`` / ``fit_banana``, the reference's per-batch schedules: one
+  VMP sweep per minibatch (q(v), and for banana q(w), updated from that
+  batch alone), then one AdaMax step.
 
 Where the JAX package runs the whole training as one jitted ``lax.scan``,
 this is an eager Python loop, written so that an epoch never waits on the
 host: the loops have fixed counts (``tol=None``), every guard is a
 ``torch.where``, the optimizer's step count and learning rate stay device
-tensors, and θ, the optimizer state and the warm starts are updated in
-place. That also makes a θ-step or an epoch capturable in a CUDA graph.
+tensors, scalars such as w̄ stay 0-d device tensors, and θ, the optimizer
+state and the warm starts are updated in place. That also makes a θ-step
+or an epoch capturable in a CUDA graph.
 """
 
 from dataclasses import dataclass
@@ -22,7 +29,8 @@ from typing import NamedTuple
 import torch
 
 from .. import config
-from ..dists import MvGaussianNat
+from ..dists import GammaShapeRate, MvGaussianNat
+from ..nodes.probit import tilted_marginal_batch
 from ..objectives import neg_log_backwardmess_gram
 from ..ops.linalg import (effective_jitter, gershgorin_lambda_min, ir_solve,
                           spd_inverse, sym)
@@ -33,10 +41,17 @@ __all__ = [
     "REFRESH_NS_ITERS_SCALED",
     "AdaMaxChain",
     "FastCarry",
+    "MinibatchCarry",
+    "banana_epoch_stats",
+    "banana_epoch_steps",
     "default_optimizer",
     "fast_epoch_steps",
     "fast_optimizer",
+    "fit_banana",
+    "fit_banana_fast",
+    "fit_kin40k",
     "fit_kin40k_fast",
+    "init_banana_state",
     "init_kin40k_fast_state",
     "make_theta_step",
     "qv_grand_update",
@@ -237,6 +252,25 @@ def _clone_carry(c: FastCarry) -> FastCarry:
                      {k: v.clone() for k, v in c.opt_state.items()}, c.kuu_inv.clone())
 
 
+def _objective_grad(kernel, Xu, dt, ns_iters, ns_tol=None):
+    """``grad(θ, Kuu⁻¹ warm, Xb, yb, μ_v, Rv, w) -> (∂loss/∂θ, Kuu⁻¹)`` of
+    ``neg_log_backwardmess_gram`` for θ of dtype ``dt``, with Kuu jittered
+    by ``effective_jitter(dt)``. ``w`` may be a Python number or a 0-d
+    device tensor."""
+    kuu_jit = effective_jitter(dt)
+
+    def grad(th, kw, Xb, yb, mu_v, Rv, w):
+        th = th.detach().requires_grad_(True)
+        loss, kuu_inv = neg_log_backwardmess_gram(
+            th, kernel=kernel, Xu=Xu, X=Xb, y=yb, mu_v=mu_v, Rv=Rv, w=w,
+            kuu_inv_warm=kw, ns_iters=ns_iters, ns_tol=ns_tol, kuu_jitter=kuu_jit,
+        )
+        (g,) = torch.autograd.grad(loss, th)
+        return g, kuu_inv
+
+    return grad
+
+
 def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMaxChain,
                      dt, refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
                      refresh_ns_tol: float | None = None, obj_ns_iters: int = 12,
@@ -253,7 +287,6 @@ def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMa
       AdaMax step on ``neg_log_backwardmess_gram`` with Kuu jittered by
       ``effective_jitter(dt)``, in place."""
     acc_dt = _acc_dtype(dt)
-    kuu_jit = effective_jitter(dt)
     # rigorous λ_min bound for every epoch's Λ (⪰ the prior precision)
     lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
 
@@ -265,16 +298,10 @@ def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMa
             ns_tol=refresh_ns_tol, lambda_min=lam_v)
         return xi, prec, cov64, mu64.to(dt), (cov64 + torch.outer(mu64, mu64)).to(dt)
 
+    grad = _objective_grad(kernel, Xu, dt, obj_ns_iters, obj_ns_tol)
+
     def grad_one(th, kw, batch):
-        Xb, yb, mu_v, Rv = batch
-        th = th.detach().requires_grad_(True)
-        loss, kuu_inv = neg_log_backwardmess_gram(
-            th, kernel=kernel, Xu=Xu, X=Xb, y=yb, mu_v=mu_v, Rv=Rv, w=w_val,
-            kuu_inv_warm=kw, ns_iters=obj_ns_iters, ns_tol=obj_ns_tol,
-            kuu_jitter=kuu_jit,
-        )
-        (g,) = torch.autograd.grad(loss, th)
-        return g, kuu_inv
+        return grad(th, kw, *batch, w_val)
 
     return statistics_refresh, make_theta_step(grad_one, optimizer)
 
@@ -357,3 +384,323 @@ def fit_kin40k_fast(
     carry = FastCarry(xi, prec, covs64, theta, opt_state, kuu_inv)
     # the last group's inverse is the full-posterior estimate callers expect
     return theta, MvGaussianNat(xi, prec), covs64[-1], carry
+
+
+class MinibatchCarry(NamedTuple):
+    """The per-batch trainers' and the banana fast trainer's state between
+    epochs, field for field the JAX carry: q(v)'s natural parameters (in the
+    accumulation dtype), the warm Newton–Schulz estimates of Λ⁻¹ and of
+    Kuu(θ)⁻¹, θ, the optimizer state, and the Gamma q(w) (classification
+    only; 0 for kin40k)."""
+
+    xi_v: torch.Tensor
+    prec_v: torch.Tensor
+    cov_v: torch.Tensor
+    kuu_inv: torch.Tensor
+    theta: torch.Tensor
+    opt_state: dict
+    w_shape: torch.Tensor
+    w_rate: torch.Tensor
+
+
+def _clone_minibatch_carry(c: MinibatchCarry) -> MinibatchCarry:
+    return MinibatchCarry(*(t.clone() for t in c[:5]),
+                          {k: v.clone() for k, v in c.opt_state.items()},
+                          c.w_shape.clone(), c.w_rate.clone())
+
+
+def _scalar(x, dtype, device):
+    """A 0-d tensor of ``dtype`` on ``device``: a tensor is cast (rounding
+    in its own dtype first, as ``jnp.asarray(x, dtype)`` does), a number is
+    filled in on the device with no host-to-device copy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), float(x), dtype=dtype, device=device)
+
+
+def fit_kin40k(
+    kernel,
+    theta0,
+    Xu,
+    X_batched,  # (B, batch, Din)
+    y_batched,  # (B, batch)
+    prior_v: MvGaussianNat,
+    w_val: float,
+    epochs: int,
+    learning_rate: float = 0.001,
+    resume_state: MinibatchCarry | None = None,
+    ns_budget: int = 34,
+):
+    """kin40k trainer with the reference's per-batch schedule
+    (regression_kin40k.ipynb cells 9-10), on the device of its tensors: w is
+    a PointMass (``w_val``); q(v) resets to the prior each epoch; per batch,
+    q(v) takes that batch's natural-parameter increment (f64 products), its
+    inverse is refreshed by ``spd_inverse`` warm-started from the previous
+    batch's (``ns_budget`` spectrum-scaled iterations, λ_min bound of the
+    prior), μ_v by ``ir_solve`` (3 rounds), then one AdaMax step on the
+    objective (Kuu⁻¹ by ``ns_budget`` iterations too).
+
+    ``resume_state``: a carry from an earlier call (or from
+    ``convert.banana_state_from_jax`` of a JAX carry); it is copied, not
+    changed. The initial warm starts are zeros, as the JAX carry's are.
+    Returns ``(θ, MvGaussianNat(ξ, Λ), carry)``."""
+    optimizer = default_optimizer(learning_rate)
+    M = Xu.shape[0]
+    dt = theta0.dtype
+    acc_dt = _acc_dtype(dt)
+    dev = theta0.device
+    # Λ = Λ_prior + Σ w·KKᵀ ⪰ Λ_prior for every batch of every epoch
+    lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
+    grad = _objective_grad(kernel, Xu, dt, ns_budget)
+    theta_step = make_theta_step(lambda th, kw, b: grad(th, kw, *b, w_val), optimizer)
+    xi_prior, prec_prior = prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt)
+
+    if resume_state is None:
+        theta = theta0.clone()
+        carry = MinibatchCarry(
+            xi_prior, prec_prior, torch.zeros((M, M), dtype=acc_dt, device=dev),
+            torch.zeros((M, M), dtype=dt, device=dev), theta, optimizer.init(theta),
+            torch.zeros((), dtype=dt, device=dev), torch.zeros((), dtype=dt, device=dev))
+    else:
+        carry = _clone_minibatch_carry(resume_state)
+    xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
+
+    for _ in range(epochs):
+        # the reference resets q(v) to its prior at every epoch start
+        # (regression_kin40k.ipynb cell 9: μ_v = zeros; Σ_v = 50I)
+        xi, prec = xi_prior, prec_prior
+        for Xb, yb in zip(X_batched, y_batched):
+            with torch.no_grad():
+                Kux64 = kernel(theta, Xu, Xb).to(acc_dt)
+                xi = xi + w_val * torch.matmul(Kux64, yb.to(acc_dt))
+                prec = prec + w_val * torch.matmul(Kux64, Kux64.T)
+                cov = spd_inverse(sym(prec), warm=cov, iters=ns_budget, lambda_min=lam_v)
+                mu64 = ir_solve(sym(prec), xi, cov, rounds=3)
+                mu_v = mu64.to(dt)
+                Rv = (cov + torch.outer(mu64, mu64)).to(dt)
+            theta_step(theta, opt_state, kuu_inv, (Xb, yb, mu_v, Rv))
+
+    carry = MinibatchCarry(xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate)
+    return theta, MvGaussianNat(xi, prec), carry
+
+
+def init_banana_state(kernel, theta0, Xu, prior_v: MvGaussianNat,
+                      prior_w: GammaShapeRate, optimizer=None) -> MinibatchCarry:
+    """Initial carry of :func:`fit_banana_fast` and :func:`fit_banana`, on
+    θ0's device: q(v) at the prior in the accumulation dtype, cold
+    40-iteration Newton–Schulz inverses of Kuu(θ0) (jittered) and of the
+    prior precision, θ0, the optimizer's state (``default_optimizer()``
+    unless given) and q(w) at ``prior_w`` in the accumulation dtype."""
+    if optimizer is None:
+        optimizer = default_optimizer()
+    dt = theta0.dtype
+    acc_dt = _acc_dtype(dt)
+    dev = theta0.device
+    with torch.no_grad():
+        kuu_inv0 = spd_inverse(kernel.kuu(theta0, Xu, jitter=effective_jitter(dt)),
+                               iters=NS_ITERS_WARMUP)
+        cov0 = spd_inverse(sym(prior_v.prec).to(acc_dt), iters=NS_ITERS_WARMUP)
+    theta = theta0.clone()
+    return MinibatchCarry(
+        prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt), cov0, kuu_inv0,
+        theta, optimizer.init(theta),
+        _scalar(prior_w.shape, acc_dt, dev), _scalar(prior_w.rate, acc_dt, dev))
+
+
+def _qw_increment(Kux, kxx, kuu_inv, qf, mu_v, Rv):
+    """Σ(I1 + I2) of the Gamma q(w) rate update in trace form
+    (UniSGPnode.jl:219-238): I1 = kxx − kᵀKuu⁻¹k (floored at 0),
+    I2 = E[f]² + Var f − 2E[f]·kᵀμ_v + kᵀRv k, per column k of Kux."""
+    I1 = torch.clamp_min(kxx - torch.sum(Kux * torch.matmul(kuu_inv, Kux), dim=0), 0.0)
+    I2 = (qf.mean**2 + qf.var - 2.0 * qf.mean * torch.matmul(Kux.T, mu_v)
+          + torch.sum(Kux * torch.matmul(Rv, Kux), dim=0))
+    return torch.sum(I1 + I2)
+
+
+@torch.no_grad()
+def banana_epoch_stats(kernel, Xu, X, y, carry: MinibatchCarry, N_global,
+                       refresh_ns_iters, dt, acc_dt, reduce=_identity, lambda_min=None):
+    """The grand per-epoch statistics pass of :func:`fit_banana_fast`:
+    forward f-messages at the carry's (μ_v, w̄) and probit tilted marginals
+    for (this shard of) the data, the accumulating q(v) update with its f64
+    Newton–Schulz refresh (``qv_grand_update``), and the carried q(w)
+    update (shape += N/2, rate += Σ(I1+I2)/2; I1 with the carry's warm
+    Kuu⁻¹). Every global quantity is a sum over the points, so a
+    data-parallel pass puts its all-reduce in ``reduce`` and passes the
+    pre-shard ``N_global``. Returns ``(qf, ξ, Λ, Σ, μ_v, Rv, w_shape,
+    w_rate)``: μ_v and Rv in ``dt``, q(w) in ``acc_dt``."""
+    theta = carry.theta
+    Kall = kernel(theta, Xu, X)
+    Kall64 = Kall.to(acc_dt)
+    kxx = kernel.diag(theta, X)
+    w_mean = (carry.w_shape / carry.w_rate).to(dt)
+    mu_v_prev = ir_solve(carry.prec_v, carry.xi_v, carry.cov_v, rounds=2).to(dt)
+    # forward f messages → probit tilted marginals (a per-datum map)
+    f_fwd = torch.matmul(Kall.T, mu_v_prev)
+    f_var = (1.0 / w_mean).expand_as(f_fwd)
+    qf = tilted_marginal_batch(f_fwd, f_var, y)
+    # one grand q(v) update (accumulating across epochs, f64 products)
+    w64 = (carry.w_shape / carry.w_rate).to(acc_dt)
+    xi, prec, cov64, mu64 = qv_grand_update(
+        Kall64, qf.mean.to(acc_dt), carry.xi_v, carry.prec_v, w64, carry.cov_v,
+        refresh_ns_iters, reduce=reduce, lambda_min=lambda_min)
+    mu_v = mu64.to(dt)
+    Rv = (cov64 + torch.outer(mu64, mu64)).to(dt)
+    # one grand q(w) update
+    w_shape = (carry.w_shape + 0.5 * N_global).to(acc_dt)
+    w_rate = (carry.w_rate
+              + 0.5 * reduce(_qw_increment(Kall, kxx, carry.kuu_inv, qf, mu_v, Rv))
+              ).to(acc_dt)
+    return qf, xi, prec, cov64, mu_v, Rv, w_shape, w_rate
+
+
+def banana_epoch_steps(kernel, Xu, X, y, prior_v: MvGaussianNat, optimizer: AdaMaxChain,
+                       dt, refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+                       obj_ns_iters: int = NS_ITERS_STEADY):
+    """The two steps of a :func:`fit_banana_fast` epoch on all the training
+    points (X, y), for θ of dtype ``dt``, as functions (so each can also be
+    timed alone):
+
+    - ``statistics(carry) -> (qf, ξ, Λ, Σ, μ_v, Rv, w_shape, w_rate)``:
+      :func:`banana_epoch_stats` with the prior's λ_min bound;
+    - ``theta_step(theta, opt_state, kuu_inv, (Xb, f̄b, μ_v, Rv, w̄))``: one
+      AdaMax step on ``neg_log_backwardmess_gram`` against pseudo-targets
+      f̄ = E[f] with w̄ a 0-d tensor of ``dt``, in place."""
+    acc_dt = _acc_dtype(dt)
+    # Λ accumulates PSD increments from the prior up → its λ_min bound
+    lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
+    N = X.shape[0]
+
+    def statistics(carry):
+        return banana_epoch_stats(kernel, Xu, X, y, carry, N, refresh_ns_iters, dt,
+                                  acc_dt, lambda_min=lam_v)
+
+    grad = _objective_grad(kernel, Xu, dt, obj_ns_iters)
+    return statistics, make_theta_step(lambda th, kw, b: grad(th, kw, *b), optimizer)
+
+
+def fit_banana_fast(
+    kernel,
+    theta0,
+    Xu,
+    X_batched,  # (B, batch, 2)
+    y_batched,  # (B, batch) in {0,1}
+    prior_v: MvGaussianNat,
+    prior_w: GammaShapeRate,
+    epochs: int,
+    learning_rate: float = 0.001,
+    resume_state: MinibatchCarry | None = None,
+    refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+    obj_ns_iters: int = NS_ITERS_STEADY,
+):
+    """Epoch-granular banana trainer (the :func:`fit_banana` fixed point at
+    the fast trainer's cost), on the device of its tensors. Per epoch:
+
+    - :func:`banana_epoch_stats` on all N points at the epoch's (μ_v, w̄):
+      one Gram K(Xu, X), the probit tilted marginals, one grand update of
+      the accumulating q(v) (the reference's per-batch increments at
+      frozen statistics sum to it) with its f64 refresh, and one grand q(w)
+      update;
+    - one AdaMax θ-step per batch against those frozen statistics, with
+      pseudo-targets E[f] and w̄ = shape/rate.
+
+    ``resume_state``: a carry from an earlier call, from
+    :func:`init_banana_state` or from ``convert.banana_state_from_jax``; it
+    is copied, not changed. Returns ``(θ, MvGaussianNat(ξ, Λ),
+    GammaShapeRate(shape, rate), carry)``."""
+    optimizer = default_optimizer(learning_rate)
+    dt = theta0.dtype
+    # grand arrays derived from the batches, so (x, y) pairs cannot be
+    # mispaired
+    X = X_batched.reshape(-1, X_batched.shape[-1])
+    y = y_batched.reshape(-1)
+    statistics, theta_step = banana_epoch_steps(
+        kernel, Xu, X, y, prior_v, optimizer, dt, refresh_ns_iters, obj_ns_iters)
+
+    if resume_state is None:
+        carry = init_banana_state(kernel, theta0, Xu, prior_v, prior_w, optimizer=optimizer)
+    else:
+        carry = _clone_minibatch_carry(resume_state)
+    theta, opt_state, kuu_inv = carry.theta, carry.opt_state, carry.kuu_inv
+
+    for _ in range(epochs):
+        qf, xi, prec, cov, mu_v, Rv, w_shape, w_rate = statistics(carry)
+        f_b = qf.mean.reshape(y_batched.shape)
+        w_bar = (w_shape / w_rate).to(dt)
+        for Xb, fb in zip(X_batched, f_b):
+            theta_step(theta, opt_state, kuu_inv, (Xb, fb, mu_v, Rv, w_bar))
+        carry = MinibatchCarry(xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate)
+
+    return theta, MvGaussianNat(carry.xi_v, carry.prec_v), \
+        GammaShapeRate(carry.w_shape, carry.w_rate), carry
+
+
+def fit_banana(
+    kernel,
+    theta0,
+    Xu,
+    X_batched,  # (B, batch, 2)
+    y_batched,  # (B, batch) in {0,1}
+    prior_v: MvGaussianNat,
+    prior_w: GammaShapeRate,
+    epochs: int,
+    learning_rate: float = 0.001,
+    resume_state: MinibatchCarry | None = None,
+    ns_iters: int = 30,
+    ns_tol: float | None = None,
+):
+    """Banana classification trainer with the reference's per-batch
+    schedule (classification_banana.ipynb cell 9), on the device of its
+    tensors. Per batch: forward f at the carried (μ_v, w̄), probit tilted
+    q(f), the batch's f64 q(v) increment, ``spd_inverse`` warm-started from
+    the previous batch's (``ns_iters``; ``ns_tol`` exits early, reading a
+    residual on the host each iteration), μ_v by ``ir_solve`` (2 rounds),
+    the carried q(w) update (I1 with the warm Kuu⁻¹), then one AdaMax step
+    on pseudo-targets E[f] with the updated w̄. Unlike kin40k, q(v) and q(w)
+    accumulate across epochs with no reset.
+
+    ``resume_state`` as in :func:`fit_banana_fast`. Returns ``(θ,
+    MvGaussianNat(ξ, Λ), GammaShapeRate(shape, rate), carry)``."""
+    optimizer = default_optimizer(learning_rate)
+    dt = theta0.dtype
+    acc_dt = _acc_dtype(dt)
+    batch = X_batched.shape[1]
+    grad = _objective_grad(kernel, Xu, dt, NS_ITERS_STEADY)
+    theta_step = make_theta_step(lambda th, kw, b: grad(th, kw, *b), optimizer)
+
+    if resume_state is None:
+        carry = init_banana_state(kernel, theta0, Xu, prior_v, prior_w, optimizer=optimizer)
+    else:
+        carry = _clone_minibatch_carry(resume_state)
+    xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
+
+    for _ in range(epochs):
+        for Xb, yb in zip(X_batched, y_batched):
+            with torch.no_grad():
+                Kux = kernel(theta, Xu, Xb)
+                Kux64 = Kux.to(acc_dt)
+                kxx = kernel.diag(theta, Xb)
+                w_mean = w_shape / w_rate
+                mu_v_prev = ir_solve(prec, xi, cov, rounds=2).to(dt)
+                # forward f messages → probit tilted marginals
+                # (UniSGPnode.jl:96-104 and the EP product)
+                f_fwd = torch.matmul(Kux.T, mu_v_prev)
+                f_var = (1.0 / w_mean.to(dt)).expand_as(f_fwd)
+                qf = tilted_marginal_batch(f_fwd, f_var, yb)
+                # q(v) accumulates across batches and epochs (f64 products)
+                xi = xi + w_mean * torch.matmul(Kux64, qf.mean.to(acc_dt))
+                prec = sym(prec + w_mean * torch.matmul(Kux64, Kux64.T))
+                cov = spd_inverse(prec, warm=cov, iters=ns_iters, tol=ns_tol)
+                mu64 = ir_solve(prec, xi, cov, rounds=2)
+                mu_v = mu64.to(dt)
+                Rv = (cov + torch.outer(mu64, mu64)).to(dt)
+                # the carried q(w) is the next batch's prior: shape and rate
+                # accumulate, which damps the w ↔ forward-variance loop
+                w_shape = (w_shape + 0.5 * batch).to(acc_dt)
+                w_rate = (w_rate + 0.5 * _qw_increment(Kux, kxx, kuu_inv, qf, mu_v, Rv)
+                          ).to(acc_dt)
+            theta_step(theta, opt_state, kuu_inv,
+                       (Xb, qf.mean, mu_v, Rv, (w_shape / w_rate).to(dt)))
+
+    carry = MinibatchCarry(xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate)
+    return theta, MvGaussianNat(xi, prec), GammaShapeRate(w_shape, w_rate), carry

@@ -1,23 +1,27 @@
 """Serving layer: predictor handles for trained sparse-GP models.
 
-Counterpart of ``gaussianprocessnode_tpu/serve.py``, regression subset. The
-trained state is packaged once (μ_v recovered from the trainer's natural
-parameters at build time, matmul-only) and each request batch costs one SE
-Gram of K(Xu, x*) plus one mat-vec. With ``Kernel(use_kernel=True)`` the Gram
-is the hand-written CUDA kernel of ``ops/se_gram.py``.
+Counterpart of ``gaussianprocessnode_tpu/serve.py``: the regression and the
+probit classification handles. The trained state is packaged once (μ_v
+recovered from the trainer's natural parameters at build time,
+matmul-only) and each request batch costs one SE Gram of K(Xu, x*) plus one
+mat-vec, and for a classifier the Φ epilogue. With
+``Kernel(use_kernel=True)`` the Gram is the hand-written CUDA kernel of
+``ops/se_gram.py``.
 """
 
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from .dists import MvGaussianNat
-from .infer.batch_vmp import predict_out
+from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
+from .infer.batch_vmp import predict_out, predict_probit
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
 from .utils.profiling import synchronize
 
-__all__ = ["SGPRegressor", "serve_fused", "throughput", "throughput_fused"]
+__all__ = ["SGPRegressor", "SGPClassifier", "serve_fused", "throughput",
+           "throughput_fused"]
 
 
 def _recover_mu_v(nat: MvGaussianNat, ns_iters: int = 60, ir_rounds: int = 4):
@@ -67,14 +71,59 @@ class SGPRegressor:
                                self.w_mean)
 
 
-def serve_fused(predictor: SGPRegressor, X_batches):
-    """Serve a (R, B, Din) stack of request batches; returns ``(means,
-    vars)``, each (R, B), with row i equal to ``predictor(X_batches[i])``.
-    The batches are queued back to back on the device with no host sync
-    between them (the counterpart of the JAX package's one scanned
-    program)."""
+@dataclass(frozen=True)
+class SGPClassifier:
+    """Frozen serving handle for the probit classification model:
+    ``probabilities`` returns P(y=1|x*) = Φ(m/√(1+v)) with m, v the :out
+    rule's (classification_banana.ipynb cell 13); a call thresholds them.
+    ``w_mean`` is the Gamma q(w)'s mean, a 0-dim float64 tensor on the
+    handle's device."""
+
+    kernel: object
+    theta: torch.Tensor
+    Xu: torch.Tensor
+    mu_v: torch.Tensor
+    w_mean: torch.Tensor
+
+    @classmethod
+    def from_natural(cls, kernel, theta, Xu, qv_nat: MvGaussianNat,
+                     qw: GammaShapeRate, dtype=None, device="cuda"):
+        """As ``SGPRegressor.from_natural``; w̄ = shape/rate of ``qw`` in
+        its own dtype, then held in float64 on the device (never as a
+        Python number, which would wait on the device)."""
+        dev = torch.device(device)
+
+        def t(a):
+            return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a),
+                                   device=dev)
+
+        w = gamma_mean(GammaShapeRate(t(qw.shape), t(qw.rate)))
+        reg = SGPRegressor.from_natural(kernel, theta, Xu, qv_nat,
+                                        w.to(torch.float64), dtype=dtype, device=dev)
+        return cls(reg.kernel, reg.theta, reg.Xu, reg.mu_v, reg.w_mean)
+
+    def probabilities(self, X_test):
+        X = torch.as_tensor(X_test, dtype=self.Xu.dtype, device=self.Xu.device)
+        with torch.no_grad():
+            return predict_probit(self.kernel, self.theta, self.Xu, X, self.mu_v,
+                                  self.w_mean)
+
+    def __call__(self, X_test, threshold: float = 0.5):
+        return (self.probabilities(X_test) >= threshold).to(self.Xu.dtype)
+
+
+def serve_fused(predictor, X_batches):
+    """Serve a (R, B, Din) stack of request batches, dispatched on the
+    handle's type: for an :class:`SGPRegressor`, ``(means, vars)``, each
+    (R, B), row i equal to ``predictor(X_batches[i])``; for an
+    :class:`SGPClassifier`, the (R, B) probabilities, row i equal to
+    ``predictor.probabilities(X_batches[i])``. The batches are queued back
+    to back on the device with no host sync between them (the counterpart
+    of the JAX package's one scanned program)."""
     X = torch.as_tensor(X_batches, dtype=predictor.Xu.dtype,
                         device=predictor.Xu.device)
+    if isinstance(predictor, SGPClassifier):
+        return torch.stack([predictor.probabilities(Xb) for Xb in X])
     means, vars_ = [], []
     for Xb in X:
         m, v = predictor(Xb)
@@ -83,11 +132,11 @@ def serve_fused(predictor: SGPRegressor, X_batches):
     return torch.stack(means), torch.stack(vars_)
 
 
-def throughput_fused(predictor: SGPRegressor, X_test, n_batches: int = 64,
+def throughput_fused(predictor, X_test, n_batches: int = 64,
                      iters: int = 5) -> float:
-    """Predictions per second of :func:`serve_fused` on ``n_batches`` copies
-    of the batch ``X_test``, by host clock between two device
-    synchronisations, after one warm-up call."""
+    """Predictions per second of :func:`serve_fused` (either handle) on
+    ``n_batches`` copies of the batch ``X_test``, by host clock between two
+    device synchronisations, after one warm-up call."""
     X = torch.as_tensor(X_test, dtype=predictor.Xu.dtype,
                         device=predictor.Xu.device)
     reps = X[None].expand(n_batches, *X.shape)
@@ -101,10 +150,10 @@ def throughput_fused(predictor: SGPRegressor, X_test, n_batches: int = 64,
     return X.shape[0] * n_batches * iters / dt
 
 
-def throughput(predictor: SGPRegressor, X_test, iters: int = 20) -> float:
-    """Predictions per second of the per-batch handle at this batch shape,
-    by host clock between two device synchronisations, after one warm-up
-    call."""
+def throughput(predictor, X_test, iters: int = 20) -> float:
+    """Predictions per second of a per-batch handle (either kind) at this
+    batch shape, by host clock between two device synchronisations, after
+    one warm-up call."""
     X = torch.as_tensor(X_test, dtype=predictor.Xu.dtype,
                         device=predictor.Xu.device)
     predictor(X)

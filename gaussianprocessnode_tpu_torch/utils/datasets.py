@@ -1,4 +1,5 @@
-"""Dataset loaders and synthetic-data generators (L7 layer), kin40k subset.
+"""Dataset loaders and synthetic-data generators (L7 layer), kin40k and
+banana subset.
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -11,7 +12,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["REFERENCE_ROOT", "Dataset", "kin40k", "kin40k_synthetic"]
+__all__ = ["REFERENCE_ROOT", "Dataset", "kin40k", "kin40k_synthetic", "banana",
+           "banana_synthetic"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -76,3 +78,41 @@ def kin40k_synthetic(seed: int = 0, n_test: int = 30_000):
     fx = fx / np.std(fx[:n_train])
     y_train = fx[:n_train] + rng.standard_normal(n_train) / np.sqrt(_NOISE_PRECISION)
     return Dataset(X[:n_train], y_train, X[n_train:], fx[n_train:])
+
+
+def banana(root: str = REFERENCE_ROOT, n_train: int = 4000):
+    """Banana 2-D classification, labels −1/1 → 0/1
+    (reference: classification_banana.ipynb cell 3). Raises
+    FileNotFoundError when the file is absent."""
+    path = os.path.join(root, "data", "banana", "banana.csv")
+    raw = np.genfromtxt(path, delimiter=",", skip_header=1)
+    x = raw[:, :2].astype(np.float64)
+    y = (raw[:, 2] > 0).astype(np.float64)  # replace -1 => 0
+    return Dataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])
+
+
+_BANANA_NOISE = 0.3  # standard deviation of the noise around each arc
+
+
+def banana_synthetic(seed: int = 1, n_train: int = 4000, n_test: int = 1300):
+    """Data of banana's shape, for where the banana file is absent: 2-D
+    inputs, labels in {0, 1}, ``n_train`` + ``n_test`` points.
+
+    Two interleaved curved arcs: class 1 on the upper half circle (cos t,
+    sin t), class 0 on the lower arc (1 − cos t, ½ − sin t), t uniform on
+    [0, π], each point moved by isotropic Gaussian noise of standard
+    deviation 0.3, so the classes overlap and no classifier is free of
+    errors. Labels alternate before one shuffle, so the two classes are
+    equal over all points. Inputs are standardised with the training
+    points' mean and deviation. All draws come from ``seed``."""
+    n = n_train + n_test
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.arange(n) % 2).astype(np.float64)
+    t = rng.uniform(0.0, np.pi, n)
+    x = np.where(y[:, None] == 1.0,
+                 np.stack([np.cos(t), np.sin(t)], axis=1),
+                 np.stack([1.0 - np.cos(t), 0.5 - np.sin(t)], axis=1))
+    x = x + _BANANA_NOISE * rng.standard_normal((n, 2))
+    mu, sd = x[:n_train].mean(axis=0), x[:n_train].std(axis=0)
+    x = (x - mu) / sd
+    return Dataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])

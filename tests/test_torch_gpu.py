@@ -1,5 +1,5 @@
-"""The port's CUDA kernel, its route, and the serving and training paths on
-a CUDA card.
+"""The port's CUDA kernel, its route, and the serving and training paths
+(kin40k regression, banana classification) on a CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -60,6 +60,10 @@ def _gram_tol(Z, X, var, ls):
     (1, 30000, 8, True, False),               # M = 1
     (300, 5000, 1, False, False),             # D = 1
     (129, 1300, 20, True, False),             # D = 20: 3 passes, the last partial
+    (500, 4000, 2, True, False),              # banana Kux of all points: M % 40 != 0
+    (500, 500, 2, True, True),                # banana Kuu
+    (500, 200, 2, True, False),               # banana Kux of a batch: N < one tile
+    (500, 30000, 2, True, False),             # classifier serving
 ])
 def test_kernel_matches_plain_version_on_card(M, N, D, ard, kuu):
     _need_card()
@@ -339,3 +343,105 @@ def test_trainer_epoch_makes_no_host_sync_on_card():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(th).all())
+
+
+# the banana trainers and the classifier on the card
+
+
+def _banana_inputs(device, M=500, batch=200, seed=1):
+    from gaussianprocessnode_tpu_torch.experiments import banana as runner
+
+    return runner.setup(runner.load_data("synthetic", seed), M, batch, seed, device)
+
+
+@pytest.mark.gpu
+def test_full_width_banana_epoch_on_card_matches_cpu():
+    """One fit_banana_fast epoch at banana width (M = 500, D = 2, 20 batches
+    of 200, f32 θ, f64 statistics) on the card through the kernel (41
+    launches: 1 at 500×4000, 20 at 500×500, 20 at 500×200), against the
+    same epoch on the CPU with the plain Gram, from the same carry (built on
+    the CPU: the initial carry after one epoch; from the cold initial carry
+    the q(w) rate is float32 rounding noise to ~1e-4, see
+    scripts/banana_rounding_sensitivity.py): θ, ξ, Λ, w_shape, w_rate to
+    1e-4 relative (f32 Grams that differ by the Gram tolerance, carried
+    through the probit moments, the f64 refresh and 20 AdaMax steps of size
+    ≤ 1e-3; a half-ulp perturbation of the Gram moves them by ≤ 6e-6)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.minibatch import (MinibatchCarry, fit_banana_fast,
+                                                               init_banana_state)
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    theta0, Xu, Xb, yb, pv, pw = _banana_inputs("cpu")
+    *_, c0 = fit_banana_fast(kern, theta0, Xu, Xb, yb, pv, pw, 1,
+                             resume_state=init_banana_state(kern, theta0, Xu, pv, pw))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev) for t in (theta0, Xu, Xb, yb)]
+        pv_d = type(pv)(*(t.to(dev) for t in pv))
+        pw_d = type(pw)(*(t.to(dev) for t in pw))
+        carry = MinibatchCarry(*(t.to(dev) for t in c0[:5]),
+                               {k: v.to(dev) for k, v in c0.opt_state.items()},
+                               c0.w_shape.to(dev), c0.w_rate.to(dev))
+        sg.se_gram_cuda.launches = 0
+        th, nat, qw, _ = fit_banana_fast(kern, *args, pv_d, pw_d, 1, resume_state=carry)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sg.se_gram_cuda.launches == 41
+        else:
+            assert sg.se_gram_cuda.launches == 0
+        out[dev] = [t.cpu() for t in (th, nat.xi, nat.prec, qw.shape, qw.rate)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float(torch.linalg.norm(a.double() - b.double())
+                     / torch.linalg.norm(b.double())) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_banana_epochs_make_no_host_sync_on_card():
+    """Banana epochs 2–3 of fit_banana_fast run under
+    set_sync_debug_mode("error"): the probit moments, q(w) and w̄ stay on the
+    device."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.minibatch import fit_banana_fast
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    theta0, Xu, Xb, yb, pv, pw = _banana_inputs("cuda", M=64, batch=500)
+    kern = Kernel("se", "softplus", use_kernel=True)
+    *_, carry = fit_banana_fast(kern, theta0, Xu, Xb, yb, pv, pw, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th, _, qw, _ = fit_banana_fast(kern, theta0, Xu, Xb, yb, pv, pw, 2, resume_state=carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(th).all()) and float(qw.rate) > 0
+
+
+@pytest.mark.gpu
+def test_classifier_on_card_goes_through_kernel_and_matches_cpu():
+    """The banana classifier (benchmarks/banana_refxu_trained.npz, Xu drawn
+    N(0, I₂)) on the card against the same arrays on the CPU (plain
+    version), both with the μ_v recovered on the CPU: probabilities to
+    0.4·1e-5 of |K|ᵀ|μ| plus 4ε (f32 Gram and mat-vec over 500 terms on
+    both sides; Φ moves by at most 0.4 per unit of the mean); one launch
+    per batch."""
+    _need_card()
+    import dataclasses
+
+    z = np.load(NPZ.parent / "banana_refxu_trained.npz", allow_pickle=False)
+    rng = np.random.default_rng(0)
+    Xu, X = rng.standard_normal((500, 2)), rng.standard_normal((4, 3000, 2)) * 0.5
+    cpu = convert.classifier_state_from_jax(z["theta"], Xu, z["xi"], z["prec"], z["w_shape"],
+                                            z["w_rate"], dtype=torch.float32, device="cpu")
+    gpu = dataclasses.replace(cpu, theta=cpu.theta.cuda(), Xu=cpu.Xu.cuda(),
+                              mu_v=cpu.mu_v.cuda(), w_mean=cpu.w_mean.cuda())
+    sg.se_gram_cuda.launches = 0
+    p_gpu = serve.serve_fused(gpu, X)
+    torch.cuda.synchronize()
+    assert sg.se_gram_cuda.launches == 4
+    p_cpu = serve.serve_fused(cpu, X)
+    scale = torch.stack([cpu.kernel(cpu.theta, cpu.Xu, torch.as_tensor(Xb, dtype=torch.float32))
+                         .abs().T @ cpu.mu_v.abs() for Xb in X])
+    tol = 0.4 * 1e-5 * scale + 4 * EPS32
+    assert bool(((p_gpu.cpu() - p_cpu).abs() <= tol).all())

@@ -225,7 +225,10 @@ def test_port_imports_with_jax_unavailable():
             "gaussianprocessnode_tpu_torch.utils.datasets, "
             "gaussianprocessnode_tpu_torch.objectives, "
             "gaussianprocessnode_tpu_torch.infer.minibatch, "
-            "gaussianprocessnode_tpu_torch.experiments.kin40k; "
+            "gaussianprocessnode_tpu_torch.nodes.probit, "
+            "gaussianprocessnode_tpu_torch.ops.quadrature, "
+            "gaussianprocessnode_tpu_torch.experiments.kin40k, "
+            "gaussianprocessnode_tpu_torch.experiments.banana; "
             "import chip_smoke; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
