@@ -40,8 +40,7 @@ from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
 from ..utils.datasets import banana, banana_synthetic
 from ..utils.metrics import error_rate, num_error
-from ..utils.profiling import synchronize
-from .kin40k import card_info
+from ..utils.profiling import card_info, synchronize
 
 __all__ = ["load_data", "setup", "predict", "run"]
 

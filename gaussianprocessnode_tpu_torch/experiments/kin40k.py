@@ -24,7 +24,6 @@ are absent.
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -38,9 +37,9 @@ from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
 from ..utils.datasets import kin40k, kin40k_synthetic
 from ..utils.metrics import smse
-from ..utils.profiling import synchronize
+from ..utils.profiling import card_info, synchronize
 
-__all__ = ["W_VAL", "load_data", "setup", "run", "card_info"]
+__all__ = ["W_VAL", "load_data", "setup", "run"]
 
 W_VAL = 1e4  # kin40k's fixed noise precision
 
@@ -87,16 +86,6 @@ def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
     w = torch.full((), W_VAL, dtype=torch.float64, device=theta.device)
     mean, _ = predict_out(kernel, theta, Xu, X_test, mu_v, w)
     return mean
-
-
-def card_info() -> dict:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    name, limit = (s.strip() for s in out.stdout.strip().splitlines()[0].split(","))
-    return {"name": name, "power_limit": limit,
-            "torch_name": torch.cuda.get_device_name(0)}
 
 
 def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,

@@ -39,6 +39,8 @@ __all__ = [
     "NS_ITERS_WARMUP",
     "NS_ITERS_STEADY",
     "REFRESH_NS_ITERS_SCALED",
+    "BANANA_BATCH_NS_ITERS",
+    "KIN40K_BATCH_NS_ITERS",
     "AdaMaxChain",
     "FastCarry",
     "MinibatchCarry",
@@ -64,6 +66,10 @@ __all__ = [
 NS_ITERS_WARMUP = 40
 NS_ITERS_STEADY = 8
 REFRESH_NS_ITERS_SCALED = 28
+# the per-batch trainers' warm q(v) refresh: fit_banana's plain iteration,
+# fit_kin40k's spectrum-scaled one
+BANANA_BATCH_NS_ITERS = 30
+KIN40K_BATCH_NS_ITERS = 34
 
 _INT32_MAX = 2**31 - 1
 # optax.adamax's defaults and the chain's clipping norm
@@ -429,16 +435,15 @@ def fit_kin40k(
     epochs: int,
     learning_rate: float = 0.001,
     resume_state: MinibatchCarry | None = None,
-    ns_budget: int = 34,
 ):
     """kin40k trainer with the reference's per-batch schedule
     (regression_kin40k.ipynb cells 9-10), on the device of its tensors: w is
     a PointMass (``w_val``); q(v) resets to the prior each epoch; per batch,
     q(v) takes that batch's natural-parameter increment (f64 products), its
     inverse is refreshed by ``spd_inverse`` warm-started from the previous
-    batch's (``ns_budget`` spectrum-scaled iterations, λ_min bound of the
-    prior), μ_v by ``ir_solve`` (3 rounds), then one AdaMax step on the
-    objective (Kuu⁻¹ by ``ns_budget`` iterations too).
+    batch's (``KIN40K_BATCH_NS_ITERS`` spectrum-scaled iterations, λ_min
+    bound of the prior), μ_v by ``ir_solve`` (3 rounds), then one AdaMax
+    step on the objective (Kuu⁻¹ by as many iterations).
 
     ``resume_state``: a carry from an earlier call (or from
     ``convert.banana_state_from_jax`` of a JAX carry); it is copied, not
@@ -451,7 +456,7 @@ def fit_kin40k(
     dev = theta0.device
     # Λ = Λ_prior + Σ w·KKᵀ ⪰ Λ_prior for every batch of every epoch
     lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
-    grad = _objective_grad(kernel, Xu, dt, ns_budget)
+    grad = _objective_grad(kernel, Xu, dt, KIN40K_BATCH_NS_ITERS)
     theta_step = make_theta_step(lambda th, kw, b: grad(th, kw, *b, w_val), optimizer)
     xi_prior, prec_prior = prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt)
 
@@ -474,7 +479,8 @@ def fit_kin40k(
                 Kux64 = kernel(theta, Xu, Xb).to(acc_dt)
                 xi = xi + w_val * torch.matmul(Kux64, yb.to(acc_dt))
                 prec = prec + w_val * torch.matmul(Kux64, Kux64.T)
-                cov = spd_inverse(sym(prec), warm=cov, iters=ns_budget, lambda_min=lam_v)
+                cov = spd_inverse(sym(prec), warm=cov, iters=KIN40K_BATCH_NS_ITERS,
+                                  lambda_min=lam_v)
                 mu64 = ir_solve(sym(prec), xi, cov, rounds=3)
                 mu_v = mu64.to(dt)
                 Rv = (cov + torch.outer(mu64, mu64)).to(dt)
@@ -555,8 +561,7 @@ def banana_epoch_stats(kernel, Xu, X, y, carry: MinibatchCarry, N_global,
 
 
 def banana_epoch_steps(kernel, Xu, X, y, prior_v: MvGaussianNat, optimizer: AdaMaxChain,
-                       dt, refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
-                       obj_ns_iters: int = NS_ITERS_STEADY):
+                       dt):
     """The two steps of a :func:`fit_banana_fast` epoch on all the training
     points (X, y), for θ of dtype ``dt``, as functions (so each can also be
     timed alone):
@@ -572,10 +577,10 @@ def banana_epoch_steps(kernel, Xu, X, y, prior_v: MvGaussianNat, optimizer: AdaM
     N = X.shape[0]
 
     def statistics(carry):
-        return banana_epoch_stats(kernel, Xu, X, y, carry, N, refresh_ns_iters, dt,
+        return banana_epoch_stats(kernel, Xu, X, y, carry, N, REFRESH_NS_ITERS_SCALED, dt,
                                   acc_dt, lambda_min=lam_v)
 
-    grad = _objective_grad(kernel, Xu, dt, obj_ns_iters)
+    grad = _objective_grad(kernel, Xu, dt, NS_ITERS_STEADY)
     return statistics, make_theta_step(lambda th, kw, b: grad(th, kw, *b), optimizer)
 
 
@@ -590,8 +595,6 @@ def fit_banana_fast(
     epochs: int,
     learning_rate: float = 0.001,
     resume_state: MinibatchCarry | None = None,
-    refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
-    obj_ns_iters: int = NS_ITERS_STEADY,
 ):
     """Epoch-granular banana trainer (the :func:`fit_banana` fixed point at
     the fast trainer's cost), on the device of its tensors. Per epoch:
@@ -614,8 +617,7 @@ def fit_banana_fast(
     # mispaired
     X = X_batched.reshape(-1, X_batched.shape[-1])
     y = y_batched.reshape(-1)
-    statistics, theta_step = banana_epoch_steps(
-        kernel, Xu, X, y, prior_v, optimizer, dt, refresh_ns_iters, obj_ns_iters)
+    statistics, theta_step = banana_epoch_steps(kernel, Xu, X, y, prior_v, optimizer, dt)
 
     if resume_state is None:
         carry = init_banana_state(kernel, theta0, Xu, prior_v, prior_w, optimizer=optimizer)
@@ -646,18 +648,15 @@ def fit_banana(
     epochs: int,
     learning_rate: float = 0.001,
     resume_state: MinibatchCarry | None = None,
-    ns_iters: int = 30,
-    ns_tol: float | None = None,
 ):
     """Banana classification trainer with the reference's per-batch
     schedule (classification_banana.ipynb cell 9), on the device of its
     tensors. Per batch: forward f at the carried (μ_v, w̄), probit tilted
     q(f), the batch's f64 q(v) increment, ``spd_inverse`` warm-started from
-    the previous batch's (``ns_iters``; ``ns_tol`` exits early, reading a
-    residual on the host each iteration), μ_v by ``ir_solve`` (2 rounds),
-    the carried q(w) update (I1 with the warm Kuu⁻¹), then one AdaMax step
-    on pseudo-targets E[f] with the updated w̄. Unlike kin40k, q(v) and q(w)
-    accumulate across epochs with no reset.
+    the previous batch's (``BANANA_BATCH_NS_ITERS`` iterations), μ_v by
+    ``ir_solve`` (2 rounds), the carried q(w) update (I1 with the warm
+    Kuu⁻¹), then one AdaMax step on pseudo-targets E[f] with the updated w̄.
+    Unlike kin40k, q(v) and q(w) accumulate across epochs with no reset.
 
     ``resume_state`` as in :func:`fit_banana_fast`. Returns ``(θ,
     MvGaussianNat(ξ, Λ), GammaShapeRate(shape, rate), carry)``."""
@@ -690,7 +689,7 @@ def fit_banana(
                 # q(v) accumulates across batches and epochs (f64 products)
                 xi = xi + w_mean * torch.matmul(Kux64, qf.mean.to(acc_dt))
                 prec = sym(prec + w_mean * torch.matmul(Kux64, Kux64.T))
-                cov = spd_inverse(prec, warm=cov, iters=ns_iters, tol=ns_tol)
+                cov = spd_inverse(prec, warm=cov, iters=BANANA_BATCH_NS_ITERS)
                 mu64 = ir_solve(prec, xi, cov, rounds=2)
                 mu_v = mu64.to(dt)
                 Rv = (cov + torch.outer(mu64, mu64)).to(dt)

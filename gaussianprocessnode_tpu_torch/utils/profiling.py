@@ -9,11 +9,13 @@ from a CUDA graph, so it holds device time alone; ``cuda_kernel_times``
 reads each kernel's device time from a ``torch.profiler`` trace.
 """
 
+import subprocess
 import time
 
 import torch
 
-__all__ = ["synchronize", "cuda_time_ms", "cuda_graph_time_ms", "cuda_kernel_times"]
+__all__ = ["synchronize", "card_info", "cuda_time_ms", "cuda_graph_time_ms",
+           "cuda_kernel_times"]
 
 
 def synchronize(device=None) -> None:
@@ -22,6 +24,16 @@ def synchronize(device=None) -> None:
     if device is not None and torch.device(device).type != "cuda":
         return
     torch.cuda.synchronize(device)
+
+
+def card_info() -> dict:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    name, limit = (s.strip() for s in out.stdout.strip().splitlines()[0].split(","))
+    return {"name": name, "power_limit": limit,
+            "torch_name": torch.cuda.get_device_name(0)}
 
 
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
