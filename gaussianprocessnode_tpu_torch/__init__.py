@@ -2,35 +2,52 @@
 
 The layout mirrors the JAX package module for module, so each function here
 has one JAX counterpart that the tests hold it against. The port imports
-torch and numpy only; it keeps its own copies of what it needs rather than
-importing the JAX package (whose ``__init__`` imports jax).
+torch, numpy and scipy (and h5py to read JLD files); it keeps its own copies
+of what it needs rather than importing the JAX package (whose ``__init__``
+imports jax).
 
 Ported so far (kin40k regression and banana probit classification, their
-trainers and serving paths):
+trainers and serving paths; the toy regression and classification
+workloads with the UniSGP node, quadrature, Ψ-statistics, batch VMP and the
+L-BFGS trainers):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussian / MvGaussianNat /
-                           GammaShapeRate, ``mv_nat_to_meancov``
+                           GammaShapeRate, their product, moments and
+                           entropies, ``mv_nat_to_meancov``
     ops.kernels            stationary Grams and ``Kernel``
     ops.se_gram            the hand-written CUDA SE Gram (``ops/csrc/se_gram.cu``)
-    ops.linalg             jitter, Newton–Schulz SPD inverse (with its VJP),
-                           iterative refinement
-    ops.quadrature         the Gauss–Hermite rule (the probit node's subset)
+    ops.linalg             jitter, Cholesky factors (NaN where not positive
+                           definite) and solves, Newton–Schulz SPD inverse
+                           (with its VJP), iterative refinement
+    ops.quadrature         GH, SR, UT and GenUT rules, expectations, moment
+                           matching, GenUT statistics and joint forms
+    ops.psi                exact and expected Ψ-statistics
+    nodes.unisgp           the UniSGP node's rules and average energies
     nodes.probit           probit tilted moments (closed form and GH-32),
                            average energy, the :out probability
-    objectives             ``neg_log_backwardmess_gram``
-    infer.batch_vmp        ``predict_out``, ``predict_probit``
+    objectives             ``neg_log_backwardmess_fast`` / ``_uncertain`` /
+                           ``_gram`` and their gradients
+    infer.batch_vmp        ``regression_vmp``, ``classification_vmp``,
+                           ``predict_out``, ``predict_probit``
+    infer.training         optax's L-BFGS with its zoom linesearch,
+                           ``fit_regression``, ``fit_classification``
     infer.minibatch        ``fit_kin40k_fast``, ``fit_kin40k``,
                            ``fit_banana_fast``, ``fit_banana`` and their AdaMax
                            chain
     serve                  ``SGPRegressor``, ``SGPClassifier``, ``serve_fused``,
                            throughput timers
-    convert                the JAX package's arrays → a serving handle or a
-                           trainer carry
-    utils.datasets         the kin40k and banana loaders and synthetic data of
-                           their shapes
+    convert                the JAX package's arrays → a serving handle, a
+                           trainer carry or a batch VMP result
+    utils.datasets         the toy, kin40k and banana loaders and synthetic
+                           data of their shapes
+    utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
+    utils.optim            AdaMax at Flux's defaults, scipy L-BFGS-B and
+                           Nelder–Mead over torch objectives
     experiments.kin40k     the kin40k training run on the card
     experiments.banana     the banana classification run on the card
+    experiments.toy_regression, experiments.toy_classification
+                           the toy runs on the card
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

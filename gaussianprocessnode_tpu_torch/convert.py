@@ -11,18 +11,21 @@ the port's serving handles, so the JAX and the torch handle compute the
 same predictions from one set of arrays. :func:`fast_state_from_jax` and
 :func:`banana_state_from_jax` turn a JAX trainer's carry into the port's,
 so the port resumes a JAX run and both compute the same next epoch.
+:func:`vmp_state_from_jax` does the same for a batch VMP result and θ of
+the toy trainers.
 """
 
 import numpy as np
 import torch
 
-from .dists import GammaShapeRate, MvGaussianNat
+from .dists import GammaShapeRate, Gaussian, MvGaussian, MvGaussianNat
+from .infer.batch_vmp import VMPResult
 from .infer.minibatch import FastCarry, MinibatchCarry
 from .ops.kernels import Kernel
 from .serve import SGPClassifier, SGPRegressor
 
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
-           "banana_state_from_jax"]
+           "banana_state_from_jax", "vmp_state_from_jax"]
 
 
 def _nat(xi, prec):
@@ -97,3 +100,18 @@ def banana_state_from_jax(carry, device="cuda") -> MinibatchCarry:
     t = _tensor(device)
     return MinibatchCarry(t(xi), t(prec), t(cov), t(kuu_inv), t(theta),
                           _optimizer_state(opt_state, t), t(w_shape), t(w_rate))
+
+
+def vmp_state_from_jax(result, theta, device="cuda"):
+    """(θ, the port's :class:`VMPResult`) from the JAX package's
+    ``VMPResult`` of ``regression_vmp`` / ``classification_vmp`` and θ, with
+    numpy arrays for leaves (as ``jax.tree.map(np.asarray, …)`` gives them):
+    field for field, ``qf`` kept as None where the JAX result has none.
+    Dtypes are kept."""
+    t = _tensor(device)
+    qf = None if result.qf is None else Gaussian(t(result.qf.mean), t(result.qf.var))
+    res = VMPResult(MvGaussian(t(result.qv.mean), t(result.qv.cov)),
+                    MvGaussianNat(t(result.qv_nat.xi), t(result.qv_nat.prec)),
+                    GammaShapeRate(t(result.qw.shape), t(result.qw.rate)),
+                    t(result.Uv), t(result.free_energy), qf)
+    return t(theta), res

@@ -1,19 +1,81 @@
-"""Hyperparameter-learning objectives (L4 layer), fast-trainer subset.
+"""Hyperparameter-learning objectives (L4 layer).
 
-Counterpart of ``gaussianprocessnode_tpu/objectives.py``: the
-factorization-free negative log backward message that the kin40k fast
-trainer differentiates with respect to θ. Its gradient flows through the SE
-Gram's analytic VJP (``ops/se_gram.py``) and the Newton–Schulz inverse's
-(``ops/linalg.py::spd_inverse``); every contraction is a plain
-``torch.matmul`` in full precision (``config`` keeps TF32 off).
+Counterpart of ``gaussianprocessnode_tpu/objectives.py``: the negative log
+backward messages over θ (reference: helper_functions/derivative_helper.jl),
+differentiated by ``torch.autograd``. The known-input loss comes in its
+Cholesky form (``neg_log_backwardmess_fast``, the toy trainers') and its
+factorization-free form (``neg_log_backwardmess_gram``, the kin40k fast
+trainer's); the uncertain-input loss takes expected Ψ's by quadrature.
+Gradients flow through the SE Gram's analytic VJP (``ops/se_gram.py``),
+the Cholesky and triangular solves, and the Newton–Schulz inverse's VJP
+(``ops/linalg.py::spd_inverse``); every contraction is in full precision
+(``config`` keeps TF32 off).
 """
 
 import torch
 
-from .config import JITTER_KUU
-from .ops.linalg import spd_inverse
+from .config import JITTER_KUU, JITTER_KUU_SSM
+from .ops.linalg import chol_lower, spd_inverse, tri_solve_lower
+from .ops.psi import psi_batch_expected_uni
 
-__all__ = ["neg_log_backwardmess_gram"]
+__all__ = ["neg_log_backwardmess_fast", "neg_log_backwardmess_uncertain",
+           "neg_log_backwardmess_gram", "grad_fast", "grad_uncertain"]
+
+
+def neg_log_backwardmess_fast(theta, *, kernel, Xu, X, y, mu_v, Uv, w,
+                              kuu_jitter: float = JITTER_KUU):
+    """Batched known-input hyperparameter loss
+    (reference: derivative_helper.jl:23-39):
+
+        −Σᵢ [ −½w kxxᵢ + ½w‖Lu⁻¹kᵢ‖² − ½w‖Uv kᵢ‖² + w yᵢ⟨μ_v, kᵢ⟩ ]
+
+    with kᵢ = K(Xu, xᵢ), X (N, Din), y (N,), Uv the upper Cholesky of Rv.
+    Kuu carries the reference's +1e-8·I; where it is not positive definite
+    (a linesearch excursion to a long lengthscale) the loss is NaN, as in
+    the JAX package."""
+    Kuu = kernel.kuu(theta, Xu, jitter=kuu_jitter)
+    Lu = chol_lower(Kuu)
+    kxx = kernel.diag(theta, X)
+    Kux = kernel(theta, Xu, X)  # (M, N)
+    alpha = tri_solve_lower(Lu, Kux)
+    beta = Uv @ Kux
+    llh = (
+        -0.5 * w * torch.sum(kxx)
+        + 0.5 * w * torch.sum(alpha * alpha)
+        - 0.5 * w * torch.sum(beta * beta)
+        + w * torch.dot(y, Kux.T @ mu_v)
+    )
+    return -llh
+
+
+def neg_log_backwardmess_uncertain(theta, *, kernel, Xu, y, qx_means, qx_vars, mu_v, Uv, w,
+                                   method):
+    """Uncertain-input loss (reference: derivative_helper.jl:42-52):
+
+        −Σᵢ [ w yᵢ⟨Ψ1ᵢ, μ_v⟩ − ½w (Ψ0ᵢ + tr(Ψ2ᵢ(UvᵀUv − Kuu⁻¹))) ]
+
+    with the Kuu⁻¹ contraction as ‖Lu⁻¹kₚ‖² (triangular solves, not the
+    explicit inverse, whose value and gradient are rounding noise at
+    κ(Kuu) ~ 1/jitter)."""
+    Lu = chol_lower(kernel.kuu(theta, Xu, jitter=JITTER_KUU_SSM))
+    psi0, psi1, Kp, wq = psi_batch_expected_uni(kernel, theta, Xu, method, qx_means, qx_vars)
+    M = Kp.shape[0]
+    a = tri_solve_lower(Lu, Kp.reshape(M, -1)).reshape(Kp.shape)
+    tr_kuu = torch.einsum("mnp,mnp,p->n", a, a, wq)
+    UK = torch.einsum("qm,mnp->qnp", Uv, Kp)
+    tr_rv = torch.einsum("qnp,qnp,p->n", UK, UK, wq)
+    llh = torch.sum(w * y * torch.einsum("mn,m->n", psi1, mu_v)
+                    - 0.5 * w * (psi0 + tr_rv - tr_kuu))
+    return -llh
+
+
+def _grad(loss):
+    def grad(theta, **kw):
+        th = theta.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss(th, **kw), th)
+        return g
+    grad.__doc__ = f"∇θ of ``{loss.__name__}`` by ``torch.autograd.grad``."
+    return grad
 
 
 def neg_log_backwardmess_gram(theta, *, kernel, Xu, X, y, mu_v, Rv, w,
@@ -42,3 +104,7 @@ def neg_log_backwardmess_gram(theta, *, kernel, Xu, X, y, mu_v, Rv, w,
         + w * torch.dot(y, torch.matmul(Kux.T, mu_v))
     )
     return -llh, Kuu_inv.detach()
+
+
+grad_fast = _grad(neg_log_backwardmess_fast)
+grad_uncertain = _grad(neg_log_backwardmess_uncertain)

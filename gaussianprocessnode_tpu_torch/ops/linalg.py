@@ -1,22 +1,99 @@
-"""Dense linear-algebra primitives (L0 layer), serving and fast-trainer
-subset.
+"""Dense linear-algebra primitives (L0 layer).
 
-Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: the dtype-aware
-jitter, the matmul-only Newton–Schulz SPD inverse (plain, and as an
-autograd Function with the analytic VJP) and mixed-precision iterative
-refinement. Every product is a plain
-``torch.matmul``, as the JAX package leaves them to XLA; ``config`` keeps
-TF32 off so float32 products are full precision. Every guard is branchless
-(``torch.where`` on tensors), so the fixed-count loops never wait on the
-host; only the ``tol`` early exit reads its residual on the host.
+Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: jitter, Cholesky
+factors and the solves and inverses built on them, the dtype-aware jitter,
+the matmul-only Newton–Schulz SPD inverse (plain, and as an autograd
+Function with the analytic VJP) and mixed-precision iterative refinement.
+Every product is a plain ``torch.matmul``, as the JAX package leaves them
+to XLA; ``config`` keeps TF32 off so float32 products are full precision.
+Every guard is branchless (``torch.where`` on tensors), so the fixed-count
+loops never wait on the host; only the ``tol`` early exit reads its
+residual on the host.
+
+The Cholesky factor of a matrix that is not positive definite is NaN, as
+``jnp.linalg.cholesky`` returns it: ``torch.linalg.cholesky`` would raise,
+which on the card is a host sync, and the L-BFGS linesearch relies on a NaN
+objective at such points (``infer/training.py``).
 """
 
 import torch
 
 from ..config import JITTER_KUU
 
-__all__ = ["effective_jitter", "sym", "gershgorin_lambda_min", "spd_inverse_ns",
+__all__ = ["jittered", "chol_lower", "chol_upper", "tri_solve_lower", "tri_solve_upper",
+           "chol_solve", "cholinv", "logdet_from_chol", "jdot", "rv_chol_upper",
+           "effective_jitter", "sym", "gershgorin_lambda_min", "spd_inverse_ns",
            "spd_inverse", "ir_solve"]
+
+
+def jittered(A: torch.Tensor, jitter: float = JITTER_KUU) -> torch.Tensor:
+    """A + jitter·I (reference: the ``Kuu + 1e-8*I`` pattern)."""
+    return A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+
+def chol_lower(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Lower Cholesky factor, optionally with added jitter; NaN where A is
+    not positive definite (``torch.linalg.cholesky_ex``, no error check, so
+    no host sync)."""
+    if jitter:
+        A = jittered(A, jitter)
+    L, info = torch.linalg.cholesky_ex(A)
+    n = A.shape[-1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=A.device).tril()
+    bad = (info > 0)[..., None, None] & lower  # NaN on and below the diagonal, as jnp
+    return L + torch.where(bad, float("nan"), 0.0).to(L.dtype)
+
+
+def chol_upper(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Upper Cholesky factor (the reference's ``cholesky(Rv).U``)."""
+    return chol_lower(A, jitter).mT
+
+
+def _solve_triangular(T, B, upper):
+    if B.dim() == T.dim() - 1:  # a vector right-hand side, as jnp accepts one
+        return torch.linalg.solve_triangular(T, B.unsqueeze(-1), upper=upper).squeeze(-1)
+    return torch.linalg.solve_triangular(T, B, upper=upper)
+
+
+def tri_solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L X = B with L lower triangular (reference: ``KuuL \\ B``); B
+    is a matrix or a vector."""
+    return _solve_triangular(L, B, upper=False)
+
+
+def tri_solve_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve U X = B with U upper triangular; B is a matrix or a vector."""
+    return _solve_triangular(U, B, upper=True)
+
+
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B given the lower Cholesky factor L of A, as two
+    triangular solves (reference: ``KuuL' \\ (KuuL \\ B)``)."""
+    return tri_solve_upper(L.mT, tri_solve_lower(L, B))
+
+
+def cholinv(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Inverse through the Cholesky factor (ReactiveMP ``cholinv``)."""
+    L = chol_lower(A, jitter)
+    return chol_solve(L, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log det(A) from the lower Cholesky factor of A."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+
+def jdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Flat dot product (``jnp.vdot`` of real tensors; the reference's
+    ``jdotavx``)."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def rv_chol_upper(mu_v: torch.Tensor, Sigma_v: torch.Tensor) -> torch.Tensor:
+    """Uv = chol(Σ_v + μ_v μ_vᵀ).U, the reference's amortized statistic
+    (GPnode/UniSGPnode.jl:62-73)."""
+    Rv = Sigma_v + torch.outer(mu_v, mu_v)
+    return chol_upper(sym(Rv))
 
 
 def effective_jitter(dtype, base: float = JITTER_KUU) -> float:

@@ -1,5 +1,5 @@
-"""Dataset loaders and synthetic-data generators (L7 layer), kin40k and
-banana subset.
+"""Dataset loaders and synthetic-data generators (L7 layer): the toy
+workloads, kin40k and banana.
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -12,8 +12,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["REFERENCE_ROOT", "Dataset", "kin40k", "kin40k_synthetic", "banana",
-           "banana_synthetic"]
+__all__ = ["REFERENCE_ROOT", "Dataset", "toy_sinc", "toy_classification",
+           "toy_sinc_reference", "toy_classification_reference", "split2batch", "kin40k",
+           "kin40k_synthetic", "banana", "banana_synthetic"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -31,6 +32,75 @@ class Dataset(NamedTuple):
     y_train: np.ndarray
     x_test: np.ndarray
     y_test: np.ndarray
+
+
+def toy_sinc(n_train: int = 50, n_test: int = 600, precision: float = 100.0, seed: int = 3):
+    """Toy 1-D sinc regression (reference: GPT_regression.ipynb cell 3), the
+    JAX package's draw: numpy's generator from ``seed`` (the Julia stream
+    differs; the statistics match). y_test is the noiseless sinc."""
+    rng = np.random.default_rng(seed)
+    xmin, xmax = -4.0, 4.0
+    x = np.sort(rng.uniform(xmin, xmax, n_train))
+    x_test = np.linspace(xmin - 0.1, xmax + 0.1, n_test)
+    # Julia sinc(x) = sin(πx)/(πx); numpy.sinc is identical
+    y = np.sinc(x) + rng.normal(size=n_train) * np.sqrt(1.0 / precision)
+    f_true = np.sinc(x_test)
+    return Dataset(x[:, None], y, x_test[:, None], f_true)
+
+
+def toy_classification(n_train: int = 100, n_test: int = 400, seed: int = 7):
+    """Toy 1-D probit classification (reference: GPT_classification.ipynb
+    cell 3), the JAX package's draw: latent f ~ GP(0, 2·SE(ℓ=1.2)) drawn
+    jointly at the train and test inputs, labels y ~ Bernoulli(Φ(f)). The
+    default seed gives a draw whose Bayes error (39/400) matches the
+    difficulty of the reference's Julia draw."""
+    from scipy.spatial.distance import cdist
+    from scipy.stats import norm
+
+    rng = np.random.default_rng(seed)
+    x_train = np.sort(rng.uniform(-5.0, 5.0, n_train))
+    x_test = np.linspace(-5.0, 5.0, n_test)
+    x_all = np.concatenate([x_train, x_test])
+    d2 = cdist(x_all[:, None], x_all[:, None], "sqeuclidean")
+    K = 2.0 * np.exp(-0.5 * d2 / 1.2**2) + 1e-6 * np.eye(len(x_all))
+    f = np.linalg.cholesky(K) @ rng.standard_normal(len(x_all))
+    y = (rng.uniform(size=len(x_all)) < norm.cdf(f)).astype(float)
+    return Dataset(x_train[:, None], y[:n_train], x_test[:, None], y[n_train:])
+
+
+def _load_savefiles(root, name):
+    from .jld import load_jld
+
+    d = os.path.join(root, "savefiles")
+    parts = [os.path.join(d, f"{p}_{name}.jld") for p in ("xtrain", "ytrain", "xtest", "ytest")]
+    for path in parts:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(path)
+    x, y, xt, yt = (np.asarray(load_jld(path)) for path in parts)
+    return Dataset(x[:, None], y, xt[:, None], yt)
+
+
+def toy_sinc_reference(root: str = REFERENCE_ROOT):
+    """The reference's own toy-regression draw (savefiles/*_toyregression.jld).
+    Raises FileNotFoundError when the files are absent."""
+    return _load_savefiles(root, "toyregression")
+
+
+def toy_classification_reference(root: str = REFERENCE_ROOT):
+    """The reference's own toy-classification draw
+    (savefiles/*_toyclassification.jld). Raises FileNotFoundError when the
+    files are absent."""
+    return _load_savefiles(root, "toyclassification")
+
+
+def split2batch(x, y, batch_size: int):
+    """Minibatch splitter (reference: split2batch, gp_helperfunction.jl:137-142):
+    arrays shaped (B, batch_size, ...); the trailing remainder is dropped."""
+    n = (len(y) // batch_size) * batch_size
+    xa, ya = np.asarray(x), np.asarray(y)
+    xb = xa[:n].reshape(n // batch_size, batch_size, *xa.shape[1:])
+    yb = ya[:n].reshape(n // batch_size, batch_size)
+    return xb, yb
 
 
 def kin40k(root: str = REFERENCE_ROOT):

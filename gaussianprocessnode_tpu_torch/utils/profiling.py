@@ -6,7 +6,8 @@ between two ``synchronize`` calls. ``cuda_time_ms`` puts CUDA events
 around a Python loop of calls, so it also holds each call's host cost
 where that exceeds the device's; ``cuda_graph_time_ms`` replays the calls
 from a CUDA graph, so it holds device time alone; ``cuda_kernel_times``
-reads each kernel's device time from a ``torch.profiler`` trace.
+reads each kernel's device time from a ``torch.profiler`` trace;
+``count_syncs`` counts the host synchronisations of a call.
 """
 
 import subprocess
@@ -15,7 +16,7 @@ import time
 import torch
 
 __all__ = ["synchronize", "card_info", "cuda_time_ms", "cuda_graph_time_ms",
-           "cuda_kernel_times"]
+           "cuda_kernel_times", "count_syncs"]
 
 
 def synchronize(device=None) -> None:
@@ -89,8 +90,10 @@ def cuda_kernel_times(fn, warmup: int = 1):
     Returns ``(wall_ms, {kernel name: (launches, device ms)})``: the host
     clock around the call and its closing synchronisation (the profiler's
     own cost included), and each kernel's summed device time. The dict is
-    empty where the profiler records no device activity. Raises without a
-    CUDA card."""
+    empty where the profiler records no device activity. The trace's raw
+    events are summed as they are: building the profiler's per-event
+    Python objects (``key_averages``) takes minutes for the ~10⁶ kernels of
+    a graphed toy epoch. Raises without a CUDA card."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_kernel_times needs a CUDA card")
     from torch.autograd import DeviceType
@@ -105,7 +108,24 @@ def cuda_kernel_times(fn, warmup: int = 1):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            kernels[e.key] = (e.count, e.self_device_time_total / 1e3)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n, ms = kernels.get(e.name(), (0, 0.0))
+            kernels[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
     return wall_ms, kernels
+
+
+def count_syncs(fn):
+    """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``. Returns
+    its result and the number of synchronising operations that the warnings
+    name."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)

@@ -445,3 +445,65 @@ def test_classifier_on_card_goes_through_kernel_and_matches_cpu():
                          .abs().T @ cpu.mu_v.abs() for Xb in X])
     tol = 0.4 * 1e-5 * scale + 4 * EPS32
     assert bool(((p_gpu.cpu() - p_cpu).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_toy_regression_epochs_on_card_match_cpu_and_sync_once_per_linesearch_step():
+    """Two float64 toy-regression epochs on the card (plain Grams by dtype)
+    against the same epochs on the CPU (θ to 1e-6, free energies to 1e-8:
+    the L-BFGS fixed point is fixed to ~1e-8), run under
+    set_sync_debug_mode("warn") after a warm-up epoch: the only
+    synchronising operations are the linesearch's host reads, one per
+    iteration."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
+    from gaussianprocessnode_tpu_torch.infer.training import fit_regression
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.utils.datasets import toy_sinc
+    from gaussianprocessnode_tpu_torch.utils.profiling import count_syncs
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    counts = {}
+    args = treg.setup(toy_sinc(), device="cuda")  # its host-to-card copies are not counted
+    # a warm-up epoch first: a process's first cuSOLVER/cuBLAS calls create
+    # their handles and workspaces, which may synchronise once
+    fit_regression(kern, *args, epochs=1)
+    (th, fe, _), syncs = count_syncs(lambda: fit_regression(kern, *args, epochs=2,
+                                                            counts=counts))
+    th_c, fe_c, _ = fit_regression(kern, *treg.setup(toy_sinc(), device="cpu"), epochs=2)
+    assert syncs == counts["host_reads"] > 0
+    assert float(torch.max(torch.abs(th.cpu() - th_c) / torch.abs(th_c))) <= 1e-6
+    assert float(torch.max(torch.abs(fe.cpu() - fe_c) / torch.abs(fe_c))) <= 1e-8
+
+
+@pytest.mark.gpu
+def test_toy_float32_epoch_goes_through_the_kernel_on_card():
+    """One float32 toy-classification epoch through the kernel, none on the
+    plain route. The wrapper counts two launches per VMP pass and, for the
+    epoch's CUDA graph of the objective (Kuu and Kux), two in its eager
+    warm-up and two captured; the profiler's trace records the kernel two
+    times per VMP pass, per warm-up and per replayed evaluation, less at
+    most 1 in 200 that the trace can miss (chip_smoke.py TOY_TRACE_LOSS).
+    Held to the plain float32 Gram's epoch at 3× the card's readings
+    (chip_smoke.py TOY_F32_LIMITS)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
+    from gaussianprocessnode_tpu_torch.infer.training import fit_classification
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.utils.datasets import toy_classification
+    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_kernel_times
+
+    args = tcls.setup(toy_classification(), device="cuda", dtype=torch.float32)
+    ck, got = {}, []
+    sg.se_gram_cuda.launches = 0
+    _, kernels = cuda_kernel_times(lambda: got.append(fit_classification(
+        Kernel("se", "softplus", use_kernel=True), *args, epochs=1, counts=ck)), warmup=0)
+    launches = sg.se_gram_cuda.launches
+    th_k, fe_k, _ = got[0]
+    th_p, fe_p, _ = fit_classification(Kernel("se", "softplus"), *args, epochs=1)
+    records = sum(n for name, (n, _) in kernels.items() if "se_gram" in name)
+    assert sg.se_gram_cuda.launches == launches == 4 + 4 * ck["graph_captures"]
+    want = 4 + 2 * (ck["graph_captures"] + ck["evaluations"])
+    assert 0 <= want - records <= want // 200
+    assert float(torch.max(torch.abs(fe_k - fe_p) / torch.abs(fe_p))) <= 6e-6
+    assert float(torch.max(torch.abs(th_k - th_p) / torch.abs(th_p))) <= 1.5e-5
