@@ -22,17 +22,24 @@ through the kernel and through the plain Gram, held to each other; and
 serves the banana classifier (benchmarks/banana_refxu_trained.npz, inducing
 inputs and 64 batches of 30,000 requests from --seed), checked against its
 plain path and a float64 host reference; and trains the two toy workloads
-(toy regression 10 epochs, toy classification 5, in float64, held to the
+(toy regression 3 epochs, toy classification 2, in float64, held to the
 same epochs on the host, their syncs counted; one float32 epoch of each
 through the kernel held to the plain Gram; the expected-Ψ point Grams
-kernel against plain). It prints
+kernel against plain); trains the VSGP baselines at kin40k width (50
+collapsed-bound steps, two minibatch ``fit_svgp`` epochs and 20 FITC
+steps, each through the kernel and through the plain Gram, held to each
+other; the collapsed θ scored in float64 on the card and held to the host);
+and evaluates the pendulum GPSSM's M-step objective and its gradient in
+float32 (kernel against plain) and the MultiSGP node's rules in float64
+(card against host). It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
 - per timed Gram shape (serving 600×30000×8, training 600×10000×8,
   600×600×8 and 600×500×8; banana 500×4000×2, 500×500×2, 500×200×2 and
   the test predictions 500×1300×2; classifier serving 500×30000×2; the toy
-  workloads' Kuu, Kux, test rows and expected-Ψ point Grams): the
+  workloads' Kuu, Kux, test rows and expected-Ψ point Grams; the pendulum
+  objective's 48×1200×2 and 48×48×2): the
   kernel's device time (its launches replayed from a CUDA graph), its time
   in a Python loop of launches between CUDA events (host cost included),
   the time of ``fill_`` on an output of the same size (the store ceiling
@@ -40,7 +47,8 @@ kernel against plain). It prints
   version's time;
 - the training epochs' kernel launches, their agreement with the plain
   Gram's epochs, and a θ-step's and a statistics pass's device and host
-  times, for kin40k and banana;
+  times, for kin40k and banana; a collapsed VSGP step's device and host
+  times;
 - one JSON line {"kernels": [...]} with each kernel's launches on every
   path (``launches_by_path``), its disagreement with the plain version and
   those times;
@@ -115,7 +123,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/9 device: start")
+    say("phase 1/11 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -129,12 +137,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/9 device: done")
+    say("phase 1/11 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/9 build: start")
+    say("phase 2/11 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -144,7 +152,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/9 build: done")
+    say("phase 2/11 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -175,7 +183,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/9 kernel vs plain: start")
+    say("phase 3/11 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -251,12 +259,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/9 kernel vs plain: done")
+    say("phase 3/11 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/9 serving: start")
+    say("phase 4/11 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -327,7 +335,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/9 serving: done")
+    say("phase 4/11 serving: done")
     return handle, X, launches
 
 
@@ -403,7 +411,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/9 times: start")
+    say("phase 5/11 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -421,7 +429,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/9 times: done")
+    say("phase 5/11 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -496,7 +504,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/9 training: start")
+    say("phase 6/11 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -599,7 +607,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/9 training: done")
+    say("phase 6/11 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -668,7 +676,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/9 banana training: start")
+    say("phase 7/11 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -837,7 +845,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/9 banana training: done")
+    say("phase 7/11 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -867,7 +875,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/9 classifier serving: start")
+    say("phase 8/11 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -968,7 +976,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/9 classifier serving: done")
+    say("phase 8/11 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -980,7 +988,9 @@ def phase_classifier(seed, card):
 # the toy workloads (experiments/toy_regression.py, toy_classification.py):
 # M = 20 inducing inputs and N = 50 points, M = 15 and N = 100; GH-21 and
 # GenUT (3 points) put N·21 and N·3 points through one Gram
-TOY_REG_EPOCHS, TOY_CLS_EPOCHS = 10, 5
+# (3 and 2 epochs: the card-against-host check needs a few epochs, not
+# ten; the host's own float64 epochs were most of this phase's time)
+TOY_REG_EPOCHS, TOY_CLS_EPOCHS = 3, 2
 TOY_GRAM_SHAPES = [
     (20, 20, "toy regression Kuu"), (20, 50, "toy regression Kux"),
     (20, 600, "toy regression test rows"), (20, 50 * 21, "toy regression GH-21 points"),
@@ -1015,7 +1025,7 @@ TOY_TRACE_LOSS = 200
 def phase_toy(card):
     """The toy workloads at their reference configurations:
 
-    - toy regression (10 epochs) and toy classification (5 epochs) in
+    - toy regression (3 epochs) and toy classification (2 epochs) in
       float64 on the card, under set_sync_debug_mode("warn") after an
       uncounted warm-up epoch, held to the same epochs on the host (θ,
       every epoch's free energy); their syncs counted and held to the
@@ -1031,7 +1041,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/9 toy workloads: start")
+    say("phase 9/11 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1172,10 +1182,413 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/9 toy workloads: done")
+    say("phase 9/11 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
+
+
+# the VSGP / FITC baselines (experiments/vsgp_baselines.py) at kin40k width
+VSGP_STEPS, VSGP_CHUNK = 50, 25        # collapsed steps through each route
+VSGP_LR = 0.05                         # run_kin40k_collapsed's learning rate
+SVGP_EPOCHS, FITC_STEPS = 2, 20
+# collapsed, minibatch SVGP and FITC steps each launch Kuu and Kux
+LAUNCHES_PER_VSGP_STEP = 2
+# kernel-trained against plain-trained θ (relative 2-norm) and the −ELBO /
+# NLML traces (largest relative step-by-step difference): the two routes'
+# Grams differ by float32 rounding (~1e-7 of σ²), which the Cholesky of
+# B = I + AAᵀ/σ² (σ² = 0.01) amplifies in the −ELBO; AdaMax's first steps
+# move θ by ±lr whatever the gradient's size, so θ follows closely. On an
+# H100 80GB HBM3 at 700 W the readings were: collapsed θ 3.6e-7 and trace
+# 1.9e-5; fit_svgp 3.7e-7 (m_white, A_raw) and 3.4e-8 (θ); FITC θ 2.3e-7,
+# noise 1.3e-7, trace 6.9e-7. The limits are ~5-30× those readings
+VSGP_RTOL = {"collapsed_theta": 1e-5, "collapsed_trace": 1e-4,
+             "svgp": 1e-5, "fitc_theta": 1e-5, "fitc_trace": 1e-5}
+# float64 collapsed prediction on the card against the same call on the
+# host: cuBLAS and MKL sum in other orders (read 4.9e-11 on the card)
+VSGP_F64_RTOL = 1e-9
+
+
+def _trace_rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.max(torch.abs(a - b) / torch.abs(b)))
+
+
+def phase_vsgp(seed, card):
+    """The VSGP and FITC baselines at kin40k width (M = 600, N = 10,000,
+    D = 8; synthetic data from ``seed``, inducing inputs 600 training rows):
+
+    - the collapsed bound (``vsgp_baselines.run_kin40k_collapsed``'s
+      settings: noise 0.01, jitter 1e-5, lr 0.05) for 50 steps in float32
+      through the kernel, in chunks (step 1; steps 2–25 and 26–50 under
+      ``set_sync_debug_mode("error")``, one host read between chunks), then
+      the same 50 steps through the plain Gram, held to each other; 2
+      launches per step; the trained θ scored by ``collapsed_predict`` in
+      float64 on the card and held to the same call on the host;
+    - a collapsed step timed: device time from a CUDA graph of 20 steps,
+      host time eager, and one chunk profiled;
+    - two float32 ``fit_svgp`` epochs (20 batches of 500, fixed noise 0.01)
+      and 20 float32 FITC steps, each kernel against plain.
+
+    Each path's launch count is set to 0 just before it and read just
+    after."""
+    say("phase 10/11 VSGP and FITC baselines: start")
+    from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
+    from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
+    from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
+                                                          collapsed_predict, collapsed_step,
+                                                          fit_svgp,
+                                                          fit_svgp_collapsed_resumable,
+                                                          init_svgp, vsgp_optimizer)
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.utils.metrics import smse
+    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
+
+    noise, jitter = vb.COLLAPSED_NOISE, vb.COLLAPSED_JITTER
+    ds, theta0, Xu, Xb, yb = vb._kin40k("synthetic", seed, M_IND, N_TRAIN, 30_000, BATCH,
+                                        torch.device("cuda"), torch.float32)
+    X, y = Xb.reshape(-1, D_IN), yb.reshape(-1)
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus", use_kernel=False)
+    out = {}
+
+    def collapsed(kernel, chunks, debug):
+        th, st = theta0.clone(), collapsed_opt_init(theta0, VSGP_LR)
+        traces = []
+        for i, n in enumerate(chunks):
+            torch.cuda.set_sync_debug_mode("error" if debug and i > 0 else "default")
+            try:
+                th, st, tr = fit_svgp_collapsed_resumable(
+                    kernel, th, st, Xu, X, y, noise, steps=n, learning_rate=VSGP_LR,
+                    jitter=jitter)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            float(tr[-1])  # the chunk's one host read, as the runner's
+            traces.append(tr)
+        return th, st, torch.cat(traces)
+
+    chunks = (1, VSGP_CHUNK - 1, VSGP_STEPS - VSGP_CHUNK)
+    # the main path: counts at 0 just before, read just after
+    se_gram_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    th_k, st_k, tr_k = collapsed(kern, chunks, True)
+    torch.cuda.synchronize()
+    coll_s = time.perf_counter() - t
+    launches = se_gram_cuda.launches
+    th_p, _, tr_p = collapsed(plain, chunks, False)
+    check(se_gram_cuda.launches == launches, "the plain Gram launched the kernel")
+    d_th, d_tr = _rel(th_k, th_p), _trace_rel(tr_k, tr_p)
+    finite = bool(torch.isfinite(th_k).all()) and bool(torch.isfinite(tr_k).all())
+    print(f"collapsed bound, {VSGP_STEPS} steps (chunks {chunks}; steps 2-{VSGP_STEPS} under "
+          f"sync debug mode error): {coll_s * 1e3:.1f} ms (host clock, first call), se_gram "
+          f"launches {launches} ({launches / VSGP_STEPS:.0f} per step); -elbo "
+          f"{float(tr_k[0]):.2f} -> {float(tr_k[-1]):.2f}; kernel vs plain relative: theta "
+          f"{d_th:.3e} (limit {VSGP_RTOL['collapsed_theta']:.0e}), -elbo trace {d_tr:.3e} "
+          f"(limit {VSGP_RTOL['collapsed_trace']:.0e}); finite {finite} [{card}]", flush=True)
+    check(finite, "collapsed bound: non-finite θ or −ELBO")
+    check(launches == LAUNCHES_PER_VSGP_STEP * VSGP_STEPS,
+          f"collapsed bound: {launches} launches, expected {LAUNCHES_PER_VSGP_STEP * VSGP_STEPS}")
+    check(float(tr_k[-1]) < float(tr_k[0]), "collapsed bound: −ELBO did not fall")
+    check(d_th <= VSGP_RTOL["collapsed_theta"] and d_tr <= VSGP_RTOL["collapsed_trace"],
+          "collapsed bound: kernel and plain routes disagree")
+
+    # float64 scoring on the card against the same call on the host
+    f64 = torch.float64
+    args64 = (th_k.to(f64), Xu.to(f64), torch.as_tensor(ds.x_test, dtype=f64, device="cuda"),
+              X.to(f64), y.to(f64), noise)
+    t = time.perf_counter()
+    pred = collapsed_predict(kern, *args64, jitter=jitter)
+    torch.cuda.synchronize()
+    pred_ms = (time.perf_counter() - t) * 1e3
+    pred_cpu = collapsed_predict(kern, *(a.cpu() if isinstance(a, torch.Tensor) else a
+                                         for a in args64), jitter=jitter)
+    d_pred = _rel(pred.cpu(), pred_cpu)
+    score = float(smse(torch.as_tensor(ds.y_test), pred.cpu()))
+    score_cpu = float(smse(torch.as_tensor(ds.y_test), pred_cpu))
+    print(f"collapsed_predict float64 on the card ({pred_ms:.1f} ms, host clock, 30,000 test "
+          f"points): SMSE after {VSGP_STEPS} steps {score:.6f} (host {score_cpu:.6f}); means "
+          f"card vs host relative {d_pred:.3e} (limit {VSGP_F64_RTOL:.0e}) [{card}]", flush=True)
+    check(score == score and score < 1.0, f"collapsed SMSE {score}")
+    check(d_pred <= VSGP_F64_RTOL, "collapsed_predict: card and host float64 disagree")
+
+    # one collapsed step on a copy: device time by CUDA graph, host time eager
+    th_c, st_c = th_k.clone(), {k: v.clone() for k, v in st_k.items()}
+    opt = vsgp_optimizer(VSGP_LR)
+
+    def step():
+        collapsed_step(kern, opt, th_c, st_c, Xu, X, y, noise, jitter)
+
+    before = se_gram_cuda.launches
+    profiled = profile_epoch(lambda: [step() for _ in range(VSGP_CHUNK)],
+                             f"profiled eager chunk of {VSGP_CHUNK} collapsed steps", card)
+    step_eager, step_queue = eager_ms(step, 20)
+    step_dev = cuda_graph_time_ms(step, iters=20, warmup=3)
+    se_gram_cuda.launches = before
+    print(f"collapsed step: device {step_dev:.4f} ms (CUDA graph of 20 steps), eager "
+          f"{step_eager:.4f} ms (host clock, 20 steps between synchronisations), host time "
+          f"to queue one {step_queue:.4f} ms -> card idle {1.0 - step_dev / step_eager:.3f} "
+          f"of an eager step [{card}]", flush=True)
+    out["collapsed"] = dict(launches=launches, steps=VSGP_STEPS, first_call_ms=coll_s * 1e3,
+                            neg_elbo_first=float(tr_k[0]), neg_elbo_last=float(tr_k[-1]),
+                            theta_kernel_vs_plain=d_th, trace_kernel_vs_plain=d_tr,
+                            smse=score, smse_host=score_cpu, predict_card_vs_host=d_pred,
+                            predict_f64_ms=pred_ms, step_device_ms=step_dev,
+                            step_eager_ms=step_eager, step_queue_ms=step_queue,
+                            idle_share=1.0 - step_dev / step_eager, profiled_chunk=profiled)
+
+    # two float32 fit_svgp epochs at kin40k width (batches of 500)
+    p0 = init_svgp(theta0, M_IND, torch.float32, noise=noise)
+    se_gram_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pk = fit_svgp(kern, p0, Xu, Xb, yb, N_TRAIN, epochs=SVGP_EPOCHS, learn_noise=False)
+    torch.cuda.synchronize()
+    svgp_ms = (time.perf_counter() - t) * 1e3 / SVGP_EPOCHS
+    svgp_launches = se_gram_cuda.launches
+    pp = fit_svgp(plain, p0, Xu, Xb, yb, N_TRAIN, epochs=SVGP_EPOCHS, learn_noise=False)
+    check(se_gram_cuda.launches == svgp_launches, "the plain Gram launched the kernel")
+    want = LAUNCHES_PER_VSGP_STEP * SVGP_EPOCHS * (N_TRAIN // BATCH)
+    d_svgp = _held(f"fit_svgp float32, {SVGP_EPOCHS} epochs of {N_TRAIN // BATCH} batches",
+                   tuple(pk[:3]), tuple(pp[:3]), ("theta", "m_white", "A_raw"),
+                   {n: VSGP_RTOL["svgp"] for n in ("theta", "m_white", "A_raw")})
+    print(f"fit_svgp float32: {svgp_ms:.1f} ms per epoch (host clock), se_gram launches "
+          f"{svgp_launches} (expected {want}); theta moved by "
+          f"{_rel(pk.theta, theta0):.3e} [{card}]", flush=True)
+    check(svgp_launches == want, f"fit_svgp: {svgp_launches} launches, expected {want}")
+    check(torch.equal(pk.log_noise, p0.log_noise), "fit_svgp moved the fixed noise")
+    check(_rel(pk.theta, theta0) > 1e-4, "fit_svgp: θ did not move")
+    out["svgp"] = dict(launches=svgp_launches, epochs=SVGP_EPOCHS, epoch_ms=svgp_ms,
+                       kernel_vs_plain=d_svgp)
+
+    # 20 float32 FITC steps at kin40k width
+    q0 = init_sparse_gp(theta0)
+    se_gram_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    qk, fk = fit_sparse_gp(kern, q0, Xu, X, y, method="fitc", steps=FITC_STEPS,
+                           jitter=jitter)
+    torch.cuda.synchronize()
+    fitc_ms = (time.perf_counter() - t) * 1e3 / FITC_STEPS
+    fitc_launches = se_gram_cuda.launches
+    qp, fp = fit_sparse_gp(plain, q0, Xu, X, y, method="fitc", steps=FITC_STEPS,
+                           jitter=jitter)
+    check(se_gram_cuda.launches == fitc_launches, "the plain Gram launched the kernel")
+    d_f = dict(theta=_rel(qk.theta, qp.theta), log_noise=_rel(qk.log_noise, qp.log_noise),
+               trace=_trace_rel(fk, fp))
+    finite = bool(torch.isfinite(qk.theta).all()) and bool(torch.isfinite(fk).all())
+    print(f"FITC float32, {FITC_STEPS} steps: {fitc_ms:.2f} ms per step (host clock), "
+          f"se_gram launches {fitc_launches}; nlml {float(fk[0]):.2f} -> {float(fk[-1]):.2f}; "
+          f"kernel vs plain relative: theta {d_f['theta']:.3e}, log noise "
+          f"{d_f['log_noise']:.3e} (limit {VSGP_RTOL['fitc_theta']:.0e}), nlml trace "
+          f"{d_f['trace']:.3e} (limit {VSGP_RTOL['fitc_trace']:.0e}); finite {finite} "
+          f"[{card}]", flush=True)
+    check(finite, "FITC: non-finite θ or NLML")
+    check(fitc_launches == LAUNCHES_PER_VSGP_STEP * FITC_STEPS,
+          f"FITC: {fitc_launches} launches, expected {LAUNCHES_PER_VSGP_STEP * FITC_STEPS}")
+    check(float(fk[-1]) < float(fk[0]), "FITC: the NLML did not fall")
+    check(max(d_f["theta"], d_f["log_noise"]) <= VSGP_RTOL["fitc_theta"]
+          and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
+    out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
+                       kernel_vs_plain=d_f)
+    say("phase 10/11 VSGP and FITC baselines: done")
+    return out
+
+
+# the pendulum GPSSM's M-step objective (experiments/pendulum.py): M = 48
+# inducing inputs on its structured grid, D = Din = 2, N = 300 states under
+# spherical-radial cubature (4 points each): point Gram 48×1200×2, Kuu 48×48×2
+PEND_M, PEND_N, PEND_D = 48, 300, 2
+PEND_SHAPES = ((PEND_M, PEND_N * 2 * PEND_D, "pendulum M-step point Gram"),
+               (PEND_M, PEND_M, "pendulum Kuu"))
+# float32 objective and gradient through the kernel against the plain Gram:
+# the point Grams differ by float32 rounding, carried through the solve
+# against Kuu (near-duplicate inducing pairs, jittered by 3.6e-5 in float32);
+# read 7.7e-8 (value) and 2.1e-6 (gradient) on an H100 80GB HBM3 at 700 W
+MULTI_F32_RTOL = 2e-5
+# float64 card against host: cuBLAS/cuSOLVER and MKL sum in other orders.
+# The objective keeps the pendulum grid, whose inducing pairs 9e-5 apart
+# give κ(Kuu) ≈ 3e13 at θ0, so its solves carry up to ~κ·ε of rounding
+# (read 1.4e-7); the node's rules run on a regular 8×6 grid over
+# [−2, 2]×[−4, 4] (κ(Kuu) ≈ 4e4 at θ0; read ≤ 2.3e-13, the θ rule's
+# gradient and the Laplace rule's L-BFGS minimiser)
+MULTI_F64_OBJ_RTOL = 1e-6
+MULTI_F64_RTOL = 1e-10
+
+
+def _multi_inputs(seed, dtype, device):
+    """The M-step objective's inputs at pendulum width, from ``seed``: q(x)
+    means along a damped pendulum orbit with small SPD covariances, the next
+    states as μ_y, random μ_v and Σ_v, W̄ = 100·I (E[Wishart(1e2, I)])."""
+    from gaussianprocessnode_tpu_torch.ops.linalg import sum_blocks_weighted
+    from gaussianprocessnode_tpu_torch.utils.datasets import pendulum_inducing
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(PEND_N + 1) * 0.1
+    orbit = np.stack([1.6 * np.cos(t) * np.exp(-0.01 * t),
+                      -1.6 * np.sin(t) * np.exp(-0.01 * t)], axis=1)
+    orbit = orbit + 0.05 * rng.standard_normal(orbit.shape)
+    A = 0.05 * rng.standard_normal((PEND_N, PEND_D, PEND_D))
+    covs = A @ np.swapaxes(A, 1, 2) + 1e-3 * np.eye(PEND_D)
+    mu_v = 0.3 * rng.standard_normal(PEND_M * PEND_D)
+    B = 0.05 * rng.standard_normal((PEND_M * PEND_D, PEND_M * PEND_D))
+    Sigma_v = B @ B.T + 1e-3 * np.eye(PEND_M * PEND_D)
+    W = 100.0 * np.eye(PEND_D)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    Rv = T(Sigma_v + np.outer(mu_v, mu_v))
+    return dict(Xu=T(pendulum_inducing()), y_means=T(orbit[1:]), qx_means=T(orbit[:-1]),
+                qx_covs=T(covs), sumRv_W=sum_blocks_weighted(Rv, T(W), PEND_D, PEND_M),
+                mu_v=T(mu_v), W=T(W)), dict(Sigma_v=T(Sigma_v), Rv=Rv)
+
+
+def phase_multi(seed, card):
+    """The MultiSGP node and the pendulum M-step objective:
+
+    - ``neg_log_backwardmess_multi`` and ``grad_multi`` at the pendulum's
+      width in float32, through the kernel (the path, counted) and through
+      the plain Gram, held to each other; the same in float64 on the card
+      (plain Grams by dtype) held to the host;
+    - every rule of the node (out, in by cubature and by Laplace, v, the
+      batched v, w, θ with its gradient, the average energy) in float64 on
+      the card, held to the same calls on the host in this process;
+    - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
+      timed."""
+    say("phase 11/11 MultiSGP node and M-step objective: start")
+    from gaussianprocessnode_tpu_torch import dists as td
+    from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
+    from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
+    from gaussianprocessnode_tpu_torch.ops import psi as psiops
+    from gaussianprocessnode_tpu_torch.ops import quadrature as quad
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, invsoftplus
+    from gaussianprocessnode_tpu_torch.ops.linalg import cholinv
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus", use_kernel=False)
+    sr = quad.SphericalRadial()
+    out = {}
+
+    def objective(kernel, theta, kw):
+        return (neg_log_backwardmess_multi(theta, kernel=kernel, method=sr, **kw),
+                grad_multi(theta, kernel=kernel, method=sr, **kw))
+
+    kw32, _ = _multi_inputs(seed, torch.float32, "cuda")
+    theta32 = invsoftplus(torch.tensor([1.0, 1.0, 1.0], device="cuda"))
+    objective(kern, theta32, kw32)  # warm-up: the libraries' handles
+    # the main path: counts at 0 just before, read just after
+    se_gram_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vk, gk = objective(kern, theta32, kw32)
+    torch.cuda.synchronize()
+    obj_ms = (time.perf_counter() - t) * 1e3
+    launches = se_gram_cuda.launches
+    vp, gp = objective(plain, theta32, kw32)
+    check(se_gram_cuda.launches == launches, "the plain Gram launched the kernel")
+    d_v, d_g = abs(float(vk) - float(vp)) / abs(float(vp)), _rel(gk, gp)
+    print(f"pendulum M-step objective float32 (M={PEND_M}, N={PEND_N}, SR): value and "
+          f"gradient {obj_ms:.2f} ms (host clock), se_gram launches {launches} (Kuu and the "
+          f"point Gram, once for the value, once for the gradient); value {float(vk):.4f}; "
+          f"kernel vs plain relative: value {d_v:.3e}, gradient {d_g:.3e} (limit "
+          f"{MULTI_F32_RTOL:.0e}) [{card}]", flush=True)
+    check(bool(torch.isfinite(vk)) and bool(torch.isfinite(gk).all()),
+          "M-step objective: non-finite float32 value or gradient")
+    check(launches == 4, f"M-step objective: {launches} launches, expected 4")
+    check(max(d_v, d_g) <= MULTI_F32_RTOL, "M-step objective: kernel and plain disagree")
+
+    kw64, extra = _multi_inputs(seed, torch.float64, "cuda")
+    theta64 = theta32.double()
+    v64, g64 = objective(kern, theta64, kw64)
+    v64c, g64c = objective(kern, theta64.cpu(), {k: v.cpu() for k, v in kw64.items()})
+    d64 = max(abs(float(v64) - float(v64c)) / abs(float(v64c)), _rel(g64.cpu(), g64c))
+    d32_64 = _rel(gk.double(), g64)
+    print(f"pendulum M-step objective float64, card vs host relative {d64:.3e} (limit "
+          f"{MULTI_F64_OBJ_RTOL:.0e}); float32 kernel gradient vs float64 {d32_64:.3e}",
+          flush=True)
+    check(d64 <= MULTI_F64_OBJ_RTOL, "M-step objective: card and host float64 disagree")
+    out["objective"] = dict(launches=launches, ms=obj_ms, value_kernel_vs_plain=d_v,
+                            grad_kernel_vs_plain=d_g, f64_card_vs_host=d64,
+                            f32_grad_vs_f64=d32_64)
+
+    # the node's rules in float64, card against host
+    before = se_gram_cuda.launches
+
+    g1, g2 = np.meshgrid(np.linspace(-2, 2, 8), np.linspace(-4, 4, 6), indexing="ij")
+    grid = torch.as_tensor(np.stack([g1.ravel(), g2.ravel()], axis=1))
+
+    def rules(dev):
+        c = {k: v.to(dev) for k, v in kw64.items()}
+        c["Xu"] = grid.to(dev)
+        Sv, Rv = extra["Sigma_v"].to(dev), extra["Rv"].to(dev)
+        th = theta64.to(dev)
+        Kuu_inv = cholinv(kern.kuu(th, c["Xu"]), jitter=1e-12)
+        args = ms.MultiSGPArgs(th, c["Xu"], Kuu_inv)
+        W = c["W"] / 100.0
+        q_in = td.MvGaussian(c["qx_means"][0], c["qx_covs"][0] + 0.01 * torch.eye(
+            PEND_D, dtype=torch.float64, device=dev))
+        mu_y, Sy = c["y_means"][0], 0.01 * torch.eye(PEND_D, dtype=torch.float64, device=dev)
+        r = {}
+        o = ms.out_message(kern, sr, args, q_in, c["mu_v"], W)
+        r["out"] = torch.cat([o.mean, o.cov.reshape(-1)])
+        m = ms.marginal_in(kern, args, mu_y, c["mu_v"], Rv, W, q_in, sr)
+        r["in_cubature"] = torch.cat([m.mean, m.cov.reshape(-1)])
+        lap = ms.in_message_laplace(kern, args, mu_y, c["mu_v"], Rv, W, q_in.mean)
+        r["in_laplace"] = torch.cat([lap.xi, lap.prec.reshape(-1)])
+        v = ms.v_message(kern, sr, args, mu_y, q_in, W)
+        r["v"] = torch.cat([v.xi, v.prec.reshape(-1)])
+        _, p1, Kp, w = psiops.psi_batch_expected_multi(kern, th, c["Xu"], sr, c["qx_means"],
+                                                       c["qx_covs"])
+        vb_ = ms.v_message_batch(p1, psiops.sum_weighted_psi2(
+            Kp, w, torch.ones(PEND_N, dtype=torch.float64, device=dev)),
+            c["y_means"] @ W.T, W)
+        r["v_batch"] = torch.cat([vb_.xi, vb_.prec.reshape(-1)])
+        wm = ms.w_message(kern, sr, args, mu_y, Sy, q_in, c["mu_v"], Sv)
+        r["w"] = wm.inv_scale.reshape(-1)
+        logp = ms.theta_log_message(kern, sr, c["Xu"], q_in, mu_y, c["mu_v"], Rv, W)
+        x = th.clone().requires_grad_(True)
+        lv = logp(x)
+        (lg,) = torch.autograd.grad(lv, x)
+        r["theta"] = torch.cat([lv.detach().reshape(1), lg])
+        qw = td.WishartFast(torch.tensor(PEND_D + 2.0, dtype=torch.float64, device=dev),
+                            wm.inv_scale)
+        r["energy"] = ms.average_energy(kern, sr, args, mu_y, Sy, q_in, c["mu_v"], Sv,
+                                        td.wishart_mean(qw), td.wishart_mean_logdet(qw)
+                                        ).reshape(1)
+        return {k: v.detach() for k, v in r.items()}
+
+    t = time.perf_counter()
+    on_card = rules("cuda")
+    torch.cuda.synchronize()
+    rules_ms = (time.perf_counter() - t) * 1e3
+    on_host = rules("cpu")
+    check(se_gram_cuda.launches == before, "float64 rules launched the float32 kernel")
+    d_rules = {k: _rel(on_card[k].cpu(), on_host[k]) for k in on_card}
+    finite = all(bool(torch.isfinite(v).all()) for v in on_card.values())
+    print(f"MultiSGP rules float64 on the card ({rules_ms:.1f} ms, host clock, first call) "
+          f"vs host, relative: " + ", ".join(f"{k} {v:.3e}" for k, v in d_rules.items())
+          + f" (limit {MULTI_F64_RTOL:.0e}); finite {finite} [{card}]", flush=True)
+    check(finite, "MultiSGP rules: non-finite float64 result on the card")
+    check(max(d_rules.values()) <= MULTI_F64_RTOL, "MultiSGP rules: card and host disagree")
+    out["rules_card_vs_host"] = d_rules
+
+    # the Gram at the objective's shapes, held to its plain version and timed
+    var, ls = plain.params(theta32)
+    Xu32 = kw32["Xu"]
+    pts, _ = quad.points_weights_multi(sr, kw32["qx_means"], kw32["qx_covs"])
+    pts = pts.reshape(-1, PEND_D).contiguous()
+    before = se_gram_cuda.launches
+    errs, shapes = {}, []
+    for M, N, role in PEND_SHAPES:
+        Z, X = Xu32, (pts if N != M else Xu32)
+        K = se_gram_cuda(Z, X, var, ls.contiguous())
+        errs[f"{M}x{N}x{PEND_D}"] = _held_to_plain(f"{M}x{N}x{PEND_D} ({role})", Z, X, var,
+                                                   ls, K)
+        shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
+    se_gram_cuda.launches = before
+    out.update(gram_max_abs=errs, shapes=shapes)
+    say("phase 11/11 MultiSGP node and M-step objective: done")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1200,6 +1613,8 @@ def main(argv=None) -> int:
         banana = phase_banana(args.seed, card)
         classifier = phase_classifier(args.seed, card)
         toy = phase_toy(card)
+        vsgp = phase_vsgp(args.seed, card)
+        multi = phase_multi(args.seed, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -1213,7 +1628,9 @@ def main(argv=None) -> int:
         "tpu_kernel": "ops/pallas_gram.py::_gram_kernel",
         "launches": (launches + train["launches"] + banana["launches"]
                      + banana["faithful"]["launches"] + banana["kin40k_faithful"]["launches"]
-                     + classifier["launches"] + toy["launches"]),
+                     + classifier["launches"] + toy["launches"]
+                     + vsgp["collapsed"]["launches"] + vsgp["svgp"]["launches"]
+                     + vsgp["fitc"]["launches"] + multi["objective"]["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -1221,7 +1638,13 @@ def main(argv=None) -> int:
                              "classifier_serving": classifier["launches"],
                              "toy_regression_f32": toy["toy_regression"]["f32_launches"],
                              "toy_classification_f32":
-                                 toy["toy_classification"]["f32_launches"]},
+                                 toy["toy_classification"]["f32_launches"],
+                             "vsgp_collapsed": vsgp["collapsed"]["launches"],
+                             "svgp_minibatch_f32": vsgp["svgp"]["launches"],
+                             "fitc_f32": vsgp["fitc"]["launches"],
+                             "multi_objective_f32": multi["objective"]["launches"]},
+        "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
+        "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
         "max_abs_err": max_abs,
         "max_abs_diff": max_abs,
@@ -1235,7 +1658,8 @@ def main(argv=None) -> int:
         "bound_by": t30["bound_by"],
         "library_ms": None,
         "shape": t30["shape"],
-        "shapes": shapes + banana["shapes"] + [classifier["shape"]] + toy["shapes"],
+        "shapes": (shapes + banana["shapes"] + [classifier["shape"]] + toy["shapes"]
+                   + multi["shapes"]),
         "ms_600x10000": t10["device_ms"],
         "plain_ms_600x10000": t10["plain_ms"],
         "bound_ms_600x10000": t10["bound_ms"],
@@ -1251,6 +1675,8 @@ def main(argv=None) -> int:
         "banana": banana,
         "classifier": classifier,
         "toy": {k: v for k, v in toy.items() if k != "shapes"},
+        "vsgp": vsgp,
+        "multi": {k: v for k, v in multi.items() if k != "shapes"},
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -1,4 +1,4 @@
-"""gaussianprocessnode_tpu_torch — the PyTorch/CUDA port of gaussianprocessnode_tpu.
+"""gaussianprocessnode_tpu_torch — the PyTorch/CUDA port of gaussianprocessnode_tpu (JAX, TPU).
 
 The layout mirrors the JAX package module for module, so each function here
 has one JAX counterpart that the tests hold it against. The port imports
@@ -9,24 +9,27 @@ imports jax).
 Ported so far (kin40k regression and banana probit classification, their
 trainers and serving paths; the toy regression and classification
 workloads with the UniSGP node, quadrature, Ψ-statistics, batch VMP and the
-L-BFGS trainers):
+L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussian / MvGaussianNat /
-                           GammaShapeRate, their product, moments and
-                           entropies, ``mv_nat_to_meancov``
+                           GammaShapeRate / Wishart / WishartFast /
+                           PointMass, their products, moments and entropies
     ops.kernels            stationary Grams and ``Kernel``
     ops.se_gram            the hand-written CUDA SE Gram (``ops/csrc/se_gram.cu``)
     ops.linalg             jitter, Cholesky factors (NaN where not positive
-                           definite) and solves, Newton–Schulz SPD inverse
-                           (with its VJP), iterative refinement
+                           definite) and solves, block contractions,
+                           Newton–Schulz SPD inverse (with its VJP),
+                           iterative refinement
     ops.quadrature         GH, SR, UT and GenUT rules, expectations, moment
                            matching, GenUT statistics and joint forms
     ops.psi                exact and expected Ψ-statistics
     nodes.unisgp           the UniSGP node's rules and average energies
     nodes.probit           probit tilted moments (closed form and GH-32),
                            average energy, the :out probability
+    nodes.multisgp         the MultiSGP node's rules (Laplace in-message
+                           included) and average energy
     objectives             ``neg_log_backwardmess_fast`` / ``_uncertain`` /
-                           ``_gram`` and their gradients
+                           ``_multi`` / ``_gram`` and their gradients
     infer.batch_vmp        ``regression_vmp``, ``classification_vmp``,
                            ``predict_out``, ``predict_probit``
     infer.training         optax's L-BFGS with its zoom linesearch,
@@ -34,12 +37,17 @@ L-BFGS trainers):
     infer.minibatch        ``fit_kin40k_fast``, ``fit_kin40k``,
                            ``fit_banana_fast``, ``fit_banana`` and their AdaMax
                            chain
+    infer.svgp             the whitened/centered SVGP, its ELBOs, the
+                           collapsed Titsias bound and their trainers
+    infer.fitc             SoR / DTC / FITC marginal likelihoods, prediction
+                           and trainer
     serve                  ``SGPRegressor``, ``SGPClassifier``, ``serve_fused``,
                            throughput timers
     convert                the JAX package's arrays → a serving handle, a
-                           trainer carry or a batch VMP result
-    utils.datasets         the toy, kin40k and banana loaders and synthetic
-                           data of their shapes
+                           trainer carry, a batch VMP result, VSGP / FITC
+                           parameters or their AdaMax state
+    utils.datasets         the toy, kin40k and banana loaders, synthetic
+                           data of their shapes, the pendulum inducing grid
     utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
     utils.optim            AdaMax at Flux's defaults, scipy L-BFGS-B and
@@ -48,6 +56,9 @@ L-BFGS trainers):
     experiments.banana     the banana classification run on the card
     experiments.toy_regression, experiments.toy_classification
                            the toy runs on the card
+    experiments.vsgp_baselines
+                           the VSGP / FITC baseline runs (the collapsed
+                           kin40k run on the card)
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

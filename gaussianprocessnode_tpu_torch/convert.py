@@ -12,7 +12,10 @@ same predictions from one set of arrays. :func:`fast_state_from_jax` and
 :func:`banana_state_from_jax` turn a JAX trainer's carry into the port's,
 so the port resumes a JAX run and both compute the same next epoch.
 :func:`vmp_state_from_jax` does the same for a batch VMP result and θ of
-the toy trainers.
+the toy trainers. :func:`svgp_params_from_jax`, :func:`sparse_gp_params_from_jax`
+and :func:`adamax_state_from_jax` carry the VSGP and FITC trainers'
+parameters and their ``optax.chain(zero_nans(), adamax(lr))`` state, so a
+collapsed chunk resumes from a JAX chunk.
 """
 
 import numpy as np
@@ -20,12 +23,15 @@ import torch
 
 from .dists import GammaShapeRate, Gaussian, MvGaussian, MvGaussianNat
 from .infer.batch_vmp import VMPResult
+from .infer.fitc import SparseGPParams
 from .infer.minibatch import FastCarry, MinibatchCarry
+from .infer.svgp import SVGPParams
 from .ops.kernels import Kernel
 from .serve import SGPClassifier, SGPRegressor
 
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
-           "banana_state_from_jax", "vmp_state_from_jax"]
+           "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
+           "sparse_gp_params_from_jax", "adamax_state_from_jax"]
 
 
 def _nat(xi, prec):
@@ -115,3 +121,40 @@ def vmp_state_from_jax(result, theta, device="cuda"):
                     GammaShapeRate(t(result.qw.shape), t(result.qw.rate)),
                     t(result.Uv), t(result.free_energy), qf)
     return t(theta), res
+
+
+_PARAMS = {"SVGPParams": SVGPParams, "SparseGPParams": SparseGPParams}
+
+
+def _tree(x, t):
+    """Leaves through ``t``; a JAX ``SVGPParams`` / ``SparseGPParams``
+    becomes the port's NamedTuple of the same name, field for field."""
+    if hasattr(x, "_fields"):
+        return _PARAMS[type(x).__name__](*(t(leaf) for leaf in x))
+    return t(x)
+
+
+def svgp_params_from_jax(params, device="cuda") -> SVGPParams:
+    """The port's :class:`SVGPParams` from the JAX ones (numpy leaves, as
+    ``jax.tree.map(np.asarray, params)`` gives them), dtypes kept."""
+    t = _tensor(device)
+    return SVGPParams(*(t(leaf) for leaf in params))
+
+
+def sparse_gp_params_from_jax(params, device="cuda") -> SparseGPParams:
+    """The port's :class:`SparseGPParams` from the JAX ones, dtypes kept."""
+    t = _tensor(device)
+    return SparseGPParams(*(t(leaf) for leaf in params))
+
+
+def adamax_state_from_jax(opt_state, device="cuda") -> dict:
+    """The port's optimizer dict (``vsgp_optimizer``'s ``AdaMaxChain``
+    without clipping) from the state of ``optax.chain(zero_nans(),
+    adamax(lr))``, ``(ZeroNansState, (ScaleByAdamState, EmptyState))``,
+    with numpy leaves: ``found_nan`` per leaf, ``count``, ``mu`` and ``nu``
+    in the parameters' structure (one array, or an ``SVGPParams`` /
+    ``SparseGPParams``). Dtypes are kept."""
+    zero_nans, (adam, _) = opt_state
+    t = _tensor(device)
+    return {"found_nan": _tree(zero_nans.found_nan, t), "count": t(adam.count),
+            "mu": _tree(adam.mu, t), "nu": _tree(adam.nu, t)}

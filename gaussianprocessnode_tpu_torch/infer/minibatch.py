@@ -101,38 +101,61 @@ def qv_grand_update(Kall64, y64, xi, prec, w64, cov_warm, ns_iters,
     return xi, prec, cov64, mu64
 
 
+def _leaves(x):
+    """The tensors of a parameter set: one tensor, or a tuple (a NamedTuple
+    such as ``SVGPParams``) of them, as optax maps over a pytree's leaves."""
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
+def _like(template, leaves):
+    """``leaves`` in the structure of ``template`` (a tensor or a tuple)."""
+    if isinstance(template, torch.Tensor):
+        return leaves[0]
+    if hasattr(template, "_fields"):  # a NamedTuple
+        return type(template)(*leaves)
+    return tuple(leaves)
+
+
 @dataclass(frozen=True)
 class AdaMaxChain:
     """The trainers' optimizer, optax's chain ``zero_nans`` →
-    ``clip_by_global_norm(1e8)`` → ``adamax(lr)`` (b1 0.9, b2 0.999, eps
-    1e-8; optax 0.2.6) written out by hand, with an optional
+    ``clip_by_global_norm(max_norm)`` → ``adamax(lr)`` (b1 0.9, b2 0.999,
+    eps 1e-8; optax 0.2.6) written out by hand, with an optional
     ``exponential_decay`` of the learning rate over ``transition_steps``
-    steps.
+    steps. ``max_norm=None`` drops the clipping link: the chain
+    ``zero_nans`` → ``adamax`` of the VSGP and FITC trainers.
 
-    Its state is a dict of tensors that maps one to one onto the optax
-    state: ``found_nan`` (zero_nans), ``count``, ``mu``, ``nu`` (adamax's
-    ScaleByAdamState) and, with a decaying rate, ``lr_count`` (the
-    schedule's ScaleByScheduleState). The step count and the learning rate
-    stay on the device. The scalars keep optax's dtypes: 1 − b1^count is
-    formed in the default float dtype (``config.default_dtype()``; float64
-    with JAX's x64 on) and the decayed rate in float32; both are then cast
-    to the parameters' dtype."""
+    The parameters are one tensor or a tuple of tensors (a NamedTuple such
+    as ``SVGPParams``); like optax, the chain works leaf by leaf, with one
+    step count and, where it clips, one global norm over all leaves. Its
+    state is a dict that maps one to one onto the optax state:
+    ``found_nan`` (zero_nans; one flag per leaf), ``count``, ``mu``, ``nu``
+    (adamax's ScaleByAdamState; ``mu`` and ``nu`` in the parameters'
+    structure) and, with a decaying rate, ``lr_count`` (the schedule's
+    ScaleByScheduleState). The step count and the learning rate stay on the
+    device. The scalars keep optax's dtypes: 1 − b1^count is formed in the
+    default float dtype (``config.default_dtype()``; float64 with JAX's x64
+    on) and the decayed rate in float32; both are then cast to each leaf's
+    dtype."""
 
     learning_rate: float = 1e-3
     decay_rate: float = 1.0
     transition_steps: int = 1
+    max_norm: float | None = _MAX_NORM
 
     @property
     def decays(self) -> bool:
         return self.decay_rate != 1.0
 
-    def init(self, params: torch.Tensor) -> dict:
-        dev = params.device
+    def init(self, params) -> dict:
+        leaves = _leaves(params)
+        dev = leaves[0].device
         state = {
-            "found_nan": torch.zeros((), dtype=torch.bool, device=dev),
+            "found_nan": _like(params, [torch.zeros((), dtype=torch.bool, device=dev)
+                                        for _ in leaves]),
             "count": torch.zeros((), dtype=torch.int32, device=dev),
-            "mu": torch.zeros_like(params),
-            "nu": torch.zeros_like(params),
+            "mu": _like(params, [torch.zeros_like(p) for p in leaves]),
+            "nu": _like(params, [torch.zeros_like(p) for p in leaves]),
         }
         if self.decays:
             state["lr_count"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -147,32 +170,41 @@ class AdaMaxChain:
         decayed = self.learning_rate * torch.pow(self.decay_rate, c / self.transition_steps)
         return torch.where(count <= 0, torch.full_like(c, self.learning_rate), decayed)
 
-    def update_(self, grads: torch.Tensor, state: dict) -> torch.Tensor:
-        """One step of the chain on ``grads``: writes the new state into
-        ``state``'s tensors and returns the updates (to add to θ)."""
+    def update_(self, grads, state: dict):
+        """One step of the chain on ``grads`` (in the parameters'
+        structure): writes the new state into ``state``'s tensors and
+        returns the updates (to add to the parameters), in that
+        structure."""
         sdt = config.default_dtype()
         # zero_nans
-        nan = torch.isnan(grads)
-        state["found_nan"].copy_(torch.any(nan))
-        g = torch.where(nan, torch.zeros_like(grads), grads)
+        gs = []
+        for g, found in zip(_leaves(grads), _leaves(state["found_nan"])):
+            nan = torch.isnan(g)
+            found.copy_(torch.any(nan))
+            gs.append(torch.where(nan, torch.zeros_like(g), g))
         # clip_by_global_norm
-        g_norm = torch.sqrt(torch.sum(g * g))
-        g = torch.where(g_norm < _MAX_NORM, g, (g / g_norm) * _MAX_NORM)
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+            gs = [torch.where(g_norm < self.max_norm, g, (g / g_norm) * self.max_norm)
+                  for g in gs]
         # scale_by_adamax
         count = state["count"]
         count.copy_(torch.where(count < _INT32_MAX, count + 1, count))
-        mu, nu = state["mu"], state["nu"]
-        mu.copy_((1 - _B1) * g + _B1 * mu)
-        nu.copy_(torch.maximum(torch.abs(g) + _EPS, _B2 * nu))
-        bias = (1 - torch.pow(_B1, count.to(sdt))).to(mu.dtype)
-        upd = (mu / bias) / nu
+        bias = 1 - torch.pow(_B1, count.to(sdt))
+        upds = []
+        for g, mu, nu in zip(gs, _leaves(state["mu"]), _leaves(state["nu"])):
+            mu.copy_((1 - _B1) * g + _B1 * mu)
+            nu.copy_(torch.maximum(torch.abs(g) + _EPS, _B2 * nu))
+            upds.append((mu / bias.to(mu.dtype)) / nu)
         # scale_by_learning_rate
         if self.decays:
             lr_count = state["lr_count"]
-            step = (-self.learning_rate_at(lr_count)).to(upd.dtype)
+            lr = self.learning_rate_at(lr_count)
             lr_count.copy_(torch.where(lr_count < _INT32_MAX, lr_count + 1, lr_count))
-            return step * upd
-        return (-self.learning_rate) * upd
+            upds = [(-lr).to(u.dtype) * u for u in upds]
+        else:
+            upds = [(-self.learning_rate) * u for u in upds]
+        return _like(grads, upds)
 
 
 def default_optimizer(learning_rate=1e-3) -> AdaMaxChain:

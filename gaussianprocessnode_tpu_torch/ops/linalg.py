@@ -2,7 +2,8 @@
 
 Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: jitter, Cholesky
 factors and the solves and inverses built on them, the dtype-aware jitter,
-the matmul-only Newton–Schulz SPD inverse (plain, and as an autograd
+the block contractions of the multi-output node (a (DM, DM) matrix as a
+D×D grid of M×M blocks), the matmul-only Newton–Schulz SPD inverse (plain, and as an autograd
 Function with the analytic VJP) and mixed-precision iterative refinement.
 Every product is a plain ``torch.matmul``, as the JAX package leaves them
 to XLA; ``config`` keeps TF32 off so float32 products are full precision.
@@ -21,9 +22,10 @@ import torch
 from ..config import JITTER_KUU
 
 __all__ = ["jittered", "chol_lower", "chol_upper", "tri_solve_lower", "tri_solve_upper",
-           "chol_solve", "cholinv", "logdet_from_chol", "jdot", "rv_chol_upper",
-           "effective_jitter", "sym", "gershgorin_lambda_min", "spd_inverse_ns",
-           "spd_inverse", "ir_solve"]
+           "chol_solve", "solve_psd", "cholinv", "logdet_from_chol", "jdot",
+           "rv_chol_upper", "effective_jitter", "sym", "block_trace_products",
+           "sum_blocks_weighted", "sum_diagonal_blocks", "trace_blocks",
+           "gershgorin_lambda_min", "spd_inverse_ns", "spd_inverse", "ir_solve"]
 
 
 def jittered(A: torch.Tensor, jitter: float = JITTER_KUU) -> torch.Tensor:
@@ -72,6 +74,12 @@ def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return tri_solve_upper(L.mT, tri_solve_lower(L, B))
 
 
+def solve_psd(A: torch.Tensor, B: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Solve A X = B for symmetric positive-definite A through its Cholesky
+    factor (NaN where A is not positive definite)."""
+    return chol_solve(chol_lower(A, jitter), B)
+
+
 def cholinv(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Inverse through the Cholesky factor (ReactiveMP ``cholinv``)."""
     L = chol_lower(A, jitter)
@@ -106,6 +114,32 @@ def effective_jitter(dtype, base: float = JITTER_KUU) -> float:
 def sym(A: torch.Tensor) -> torch.Tensor:
     """Symmetrize: (A + Aᵀ)/2."""
     return 0.5 * (A + A.mT)
+
+
+def block_trace_products(Rv: torch.Tensor, S: torch.Tensor, D: int, M: int) -> torch.Tensor:
+    """Ψ4[i,j] = ⟨Rv_block[i,j], Sᵀ⟩ for a (DM, DM) matrix seen as a D×D
+    grid of M×M blocks (reference: ``sum(Rv_i .* Ψ2')``,
+    MultiSGPnode.jl:397)."""
+    return torch.einsum("imjn,mn->ij", Rv.reshape(D, M, D, M), S)
+
+
+def sum_blocks_weighted(Rv: torch.Tensor, W: torch.Tensor, D: int, M: int) -> torch.Tensor:
+    """Σ_{ij} W[i,j]·Rv_block[i,j], an (M, M) matrix (reference:
+    ``sum(create_blockmatrix(Σ_v,D,M) .* W)``, MultiSGPnode.jl:180)."""
+    return torch.einsum("imjn,ij->mn", Rv.reshape(D, M, D, M), W)
+
+
+def sum_diagonal_blocks(V: torch.Tensor, M: int) -> torch.Tensor:
+    """Σ_i V[block i of rows, column i], an (M,) vector (reference:
+    sum_diagonal_M, derivative_helper.jl:119-122)."""
+    D = V.shape[1]
+    return torch.einsum("imi->m", V.reshape(D, M, D))
+
+
+def trace_blocks(Rv: torch.Tensor, D: int, M: int) -> torch.Tensor:
+    """(D, D) matrix of block traces, out[i,j] = tr(Rv_block[i,j])
+    (reference: trace_blkmatrix, derivative_helper.jl:125-127)."""
+    return torch.einsum("imjm->ij", Rv.reshape(D, M, D, M))
 
 
 def gershgorin_lambda_min(A: torch.Tensor) -> torch.Tensor:

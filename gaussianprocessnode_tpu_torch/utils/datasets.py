@@ -1,5 +1,5 @@
 """Dataset loaders and synthetic-data generators (L7 layer): the toy
-workloads, kin40k and banana.
+workloads, kin40k and banana, and the pendulum's inducing grid.
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -14,7 +14,7 @@ import numpy as np
 
 __all__ = ["REFERENCE_ROOT", "Dataset", "toy_sinc", "toy_classification",
            "toy_sinc_reference", "toy_classification_reference", "split2batch", "kin40k",
-           "kin40k_synthetic", "banana", "banana_synthetic"]
+           "kin40k_synthetic", "banana", "banana_synthetic", "pendulum_inducing"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -186,3 +186,17 @@ def banana_synthetic(seed: int = 1, n_train: int = 4000, n_test: int = 1300):
     mu, sd = x[:n_train].mean(axis=0), x[:n_train].std(axis=0)
     x = (x - mu) / sd
     return Dataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])
+
+
+def pendulum_inducing():
+    """The pendulum GPSSM's structured 48-point inducing grid in 2-D
+    (reference: Pendulum cells 9, 13): pairs of points 1e-5 apart, so Kuu is
+    near singular without jitter."""
+    xu2_neg1 = np.linspace(-4, 0, 12)[::-1]
+    xu2_neg2 = xu2_neg1[::-1] + 1e-5
+    xu2_pos1 = np.linspace(1e-4, 4, 12)
+    xu2_pos2 = xu2_pos1[::-1]
+    xu2 = np.concatenate([xu2_neg1, xu2_neg2, xu2_pos1, xu2_pos2])
+    xu1 = np.linspace(-2, 2, len(xu2) // 2)
+    xu1 = np.concatenate([xu1[::-1], xu1 + 1e-5])
+    return np.stack([xu1, xu2], axis=1)

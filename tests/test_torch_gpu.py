@@ -1,5 +1,6 @@
 """The port's CUDA kernel, its route, and the serving and training paths
-(kin40k regression, banana classification) on a CUDA card.
+(kin40k regression, banana classification, the toy workloads, the VSGP
+collapsed bound and the pendulum objective's Grams) on a CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -507,3 +508,56 @@ def test_toy_float32_epoch_goes_through_the_kernel_on_card():
     assert 0 <= want - records <= want // 200
     assert float(torch.max(torch.abs(fe_k - fe_p) / torch.abs(fe_p))) <= 6e-6
     assert float(torch.max(torch.abs(th_k - th_p) / torch.abs(th_p))) <= 1.5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_points", [1200, 48], ids=["48x1200x2", "48x48x2"])
+def test_kernel_matches_plain_at_the_pendulum_objective_shapes_on_card(n_points):
+    """The pendulum M-step's Grams (its 48-point inducing grid at θ0 =
+    softplus⁻¹(1)): the spherical-radial points of 300 states, and Kuu.
+    One launch each, within the f32 rounding bound of the plain Gram."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.utils.datasets import pendulum_inducing
+
+    Z = pendulum_inducing().astype(np.float32)
+    X = Z if n_points == 48 else np.random.default_rng(9).uniform(
+        -2.0, 2.0, (n_points, 2)).astype(np.float32)
+    var, ls = np.float32(1.0), np.ones(2, np.float32)
+    Zc, Xc = torch.as_tensor(Z, device="cuda"), torch.as_tensor(X, device="cuda")
+    before = sg.se_gram_cuda.launches
+    K = sg.se_gram_cuda(Zc, Xc, torch.tensor(var, device="cuda"), torch.as_tensor(ls).cuda())
+    assert sg.se_gram_cuda.launches == before + 1
+    K_ref = sg.se_gram_reference(Zc, Xc, torch.tensor(var, device="cuda"),
+                                 torch.as_tensor(ls).cuda())
+    assert K.shape == (48, n_points)
+    assert float((K - K_ref).abs().max()) <= _gram_tol(Z, X, var, ls)
+
+
+@pytest.mark.gpu
+def test_collapsed_step_through_the_kernel_matches_the_plain_route_on_card():
+    """One AdaMax step of the collapsed bound at kin40k width (M = 600,
+    N = 10,000, f32; noise 0.01, jitter 1e-5, lr 0.05): two launches (Kuu
+    and Kux), and the −ELBO and θ after the step within 1e-4 relative of
+    the plain Gram's (the Grams differ by f32 rounding, ~1e-7 of σ²; the
+    first AdaMax step moves each θ entry by ±lr whatever the gradient's
+    size)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init, collapsed_step,
+                                                          vsgp_optimizer)
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    theta0, Xu, Xb, yb, _ = _trainer_inputs("cuda")
+    X, y = Xb.reshape(-1, 8), yb.reshape(-1)
+    out = {}
+    for use_kernel in (True, False):
+        th, st = theta0.clone(), collapsed_opt_init(theta0, 0.05)
+        before = sg.se_gram_cuda.launches
+        v = collapsed_step(Kernel("se", "softplus", use_kernel=use_kernel),
+                           vsgp_optimizer(0.05), th, st, Xu, X, y, 0.01, 1e-5)
+        assert sg.se_gram_cuda.launches == before + (2 if use_kernel else 0)
+        out[use_kernel] = (v, th)
+    (vk, tk), (vp, tp) = out[True], out[False]
+    assert bool(torch.isfinite(vk)) and bool(torch.isfinite(tk).all())
+    assert float(abs(vk - vp)) <= 1e-4 * float(abs(vp))
+    assert float(torch.linalg.norm(tk - tp) / torch.linalg.norm(tp)) <= 1e-4
+    assert not torch.equal(tk, theta0)
