@@ -1195,13 +1195,16 @@ SVGP_EPOCHS, FITC_STEPS = 2, 20
 # collapsed, minibatch SVGP and FITC steps each launch Kuu and Kux
 LAUNCHES_PER_VSGP_STEP = 2
 # kernel-trained against plain-trained θ (relative 2-norm) and the −ELBO /
-# NLML traces (largest relative step-by-step difference): the two routes'
-# Grams differ by float32 rounding (~1e-7 of σ²), which the Cholesky of
-# B = I + AAᵀ/σ² (σ² = 0.01) amplifies in the −ELBO; AdaMax's first steps
-# move θ by ±lr whatever the gradient's size, so θ follows closely. On an
-# H100 80GB HBM3 at 700 W the readings were: collapsed θ 3.6e-7 and trace
-# 1.9e-5; fit_svgp 3.7e-7 (m_white, A_raw) and 3.4e-8 (θ); FITC θ 2.3e-7,
-# noise 1.3e-7, trace 6.9e-7. The limits are ~5-30× those readings
+# NLML traces (largest step-by-step difference over the plain trace's
+# largest magnitude: the collapsed −ELBO crosses zero in a longer run, so a
+# step's own value is no scale): the two routes' Grams differ by float32
+# rounding (~1e-7 of σ²), which the Cholesky of B = I + AAᵀ/σ² (σ² = 0.01)
+# amplifies in the −ELBO; AdaMax's first steps move θ by ±lr whatever the
+# gradient's size, so θ follows closely. On an H100 80GB HBM3 at 700 W the
+# readings were: collapsed θ 3.6e-7 and trace 1.9e-5 (then relative step by
+# step, which is never smaller); fit_svgp 3.7e-7 (m_white, A_raw) and
+# 3.4e-8 (θ); FITC θ 2.3e-7, noise 1.3e-7, trace 6.9e-7. The limits are
+# ~5-30× those readings
 VSGP_RTOL = {"collapsed_theta": 1e-5, "collapsed_trace": 1e-4,
              "svgp": 1e-5, "fitc_theta": 1e-5, "fitc_trace": 1e-5}
 # float64 collapsed prediction on the card against the same call on the
@@ -1211,7 +1214,7 @@ VSGP_F64_RTOL = 1e-9
 
 def _trace_rel(a, b) -> float:
     a, b = a.double(), b.double()
-    return float(torch.max(torch.abs(a - b) / torch.abs(b)))
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
 
 
 def phase_vsgp(seed, card):
@@ -1225,6 +1228,10 @@ def phase_vsgp(seed, card):
       the same 50 steps through the plain Gram, held to each other; 2
       launches per step; the trained θ scored by ``collapsed_predict`` in
       float64 on the card and held to the same call on the host;
+    - the entry point ``run_kin40k_collapsed`` itself for the same 50
+      steps in chunks of 25 (its chunk loop, its float64 scoring of each
+      snapshot on the card, its profiled chunk): 2 launches per step, a
+      falling −ELBO, finite SMSE and the library run's θ;
     - a collapsed step timed: device time from a CUDA graph of 20 steps,
       host time eager, and one chunk profiled;
     - two float32 ``fit_svgp`` epochs (20 batches of 500, fixed noise 0.01)
@@ -1240,7 +1247,7 @@ def phase_vsgp(seed, card):
                                                           fit_svgp,
                                                           fit_svgp_collapsed_resumable,
                                                           init_svgp, vsgp_optimizer)
-    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.metrics import smse
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
@@ -1312,6 +1319,45 @@ def phase_vsgp(seed, card):
           f"card vs host relative {d_pred:.3e} (limit {VSGP_F64_RTOL:.0e}) [{card}]", flush=True)
     check(score == score and score < 1.0, f"collapsed SMSE {score}")
     check(d_pred <= VSGP_F64_RTOL, "collapsed_predict: card and host float64 disagree")
+
+    # the entry point on the same data and steps. It zeroes the count itself
+    # just before its timed chunks (after its 2 warm-up steps) and reports
+    # it; the count read here adds the chunk it profiles after training
+    se_gram_cuda.launches = 0
+    t = time.perf_counter()
+    run = vb.run_kin40k_collapsed(steps=VSGP_STEPS, eval_every=VSGP_CHUNK, seed=seed)
+    run_s = time.perf_counter() - t
+    run_launches = se_gram_cuda.launches
+    hist = run["history"]
+    d_run = _rel(torch.tensor(run["theta_softplus"]), softplus(th_k).cpu())
+    want = LAUNCHES_PER_VSGP_STEP * VSGP_STEPS
+    print(f"run_kin40k_collapsed, {VSGP_STEPS} steps in chunks of {VSGP_CHUNK}: {run_s:.2f} s "
+          f"(host clock, scoring included), training {run['train_wall_s'] * 1e3:.1f} ms; "
+          f"step device {run['step_device_ms']:.4f} ms (profiled chunk), host "
+          f"{run['step_host_ms']:.4f} ms, idle {run['idle_share']:.3f}; se_gram launches "
+          f"{run['gram_launches']} in training (expected {want}), {run_launches} with its "
+          f"profiled chunk; -elbo {hist[0]['neg_elbo_chunk_start']:.2f} -> "
+          f"{hist[-1]['neg_elbo']:.2f}; SMSE by snapshot "
+          f"{[(h['step'], round(h['smse'], 6)) for h in hist]}; theta vs the library run "
+          f"relative {d_run:.3e} (limit {VSGP_RTOL['collapsed_theta']:.0e}) [{card}]",
+          flush=True)
+    check(run["gram_launches"] == want,
+          f"run_kin40k_collapsed: {run['gram_launches']} launches, expected {want}")
+    check(run_launches == want + LAUNCHES_PER_VSGP_STEP * VSGP_CHUNK,
+          f"run_kin40k_collapsed: {run_launches} launches with its profiled chunk")
+    check([h["step"] for h in hist] == list(range(VSGP_CHUNK, VSGP_STEPS + 1, VSGP_CHUNK)),
+          "run_kin40k_collapsed: snapshots")
+    check(all(0.0 < h["smse"] < 1.0 for h in hist), "run_kin40k_collapsed: SMSE")
+    check(hist[-1]["neg_elbo"] < hist[0]["neg_elbo_chunk_start"],
+          "run_kin40k_collapsed: −ELBO did not fall")
+    check(run["step_device_ms"] > 0.0 and 0.0 <= run["idle_share"] < 1.0,
+          "run_kin40k_collapsed: no device time")
+    check(d_run <= VSGP_RTOL["collapsed_theta"],
+          "run_kin40k_collapsed and the library run disagree")
+    out["runner"] = dict(launches=run_launches, train_launches=run["gram_launches"],
+                         seconds=run_s, theta_vs_library=d_run,
+                         **{k: run[k] for k in ("train_wall_s", "step_device_ms",
+                                                "step_host_ms", "idle_share", "history")})
 
     # one collapsed step on a copy: device time by CUDA graph, host time eager
     th_c, st_c = th_k.clone(), {k: v.clone() for k, v in st_k.items()}
@@ -1629,7 +1675,8 @@ def main(argv=None) -> int:
         "launches": (launches + train["launches"] + banana["launches"]
                      + banana["faithful"]["launches"] + banana["kin40k_faithful"]["launches"]
                      + classifier["launches"] + toy["launches"]
-                     + vsgp["collapsed"]["launches"] + vsgp["svgp"]["launches"]
+                     + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
+                     + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
@@ -1640,6 +1687,7 @@ def main(argv=None) -> int:
                              "toy_classification_f32":
                                  toy["toy_classification"]["f32_launches"],
                              "vsgp_collapsed": vsgp["collapsed"]["launches"],
+                             "kin40k_collapsed_runner": vsgp["runner"]["launches"],
                              "svgp_minibatch_f32": vsgp["svgp"]["launches"],
                              "fitc_f32": vsgp["fitc"]["launches"],
                              "multi_objective_f32": multi["objective"]["launches"]},

@@ -123,38 +123,32 @@ def vmp_state_from_jax(result, theta, device="cuda"):
     return t(theta), res
 
 
-_PARAMS = {"SVGPParams": SVGPParams, "SparseGPParams": SparseGPParams}
-
-
-def _tree(x, t):
-    """Leaves through ``t``; a JAX ``SVGPParams`` / ``SparseGPParams``
-    becomes the port's NamedTuple of the same name, field for field."""
-    if hasattr(x, "_fields"):
-        return _PARAMS[type(x).__name__](*(t(leaf) for leaf in x))
-    return t(x)
+def _params(cls, params, t):
+    """The port's NamedTuple ``cls`` from a JAX one, leaf for leaf through ``t``."""
+    return cls(*(t(leaf) for leaf in params))
 
 
 def svgp_params_from_jax(params, device="cuda") -> SVGPParams:
     """The port's :class:`SVGPParams` from the JAX ones (numpy leaves, as
     ``jax.tree.map(np.asarray, params)`` gives them), dtypes kept."""
-    t = _tensor(device)
-    return SVGPParams(*(t(leaf) for leaf in params))
+    return _params(SVGPParams, params, _tensor(device))
 
 
 def sparse_gp_params_from_jax(params, device="cuda") -> SparseGPParams:
     """The port's :class:`SparseGPParams` from the JAX ones, dtypes kept."""
-    t = _tensor(device)
-    return SparseGPParams(*(t(leaf) for leaf in params))
+    return _params(SparseGPParams, params, _tensor(device))
 
 
-def adamax_state_from_jax(opt_state, device="cuda") -> dict:
+def adamax_state_from_jax(opt_state, params_type=None, device="cuda") -> dict:
     """The port's optimizer dict (``vsgp_optimizer``'s ``AdaMaxChain``
     without clipping) from the state of ``optax.chain(zero_nans(),
     adamax(lr))``, ``(ZeroNansState, (ScaleByAdamState, EmptyState))``,
     with numpy leaves: ``found_nan`` per leaf, ``count``, ``mu`` and ``nu``
-    in the parameters' structure (one array, or an ``SVGPParams`` /
-    ``SparseGPParams``). Dtypes are kept."""
+    in the parameters' structure. ``params_type`` is the port's NamedTuple
+    (``SVGPParams`` or ``SparseGPParams``) where the chain ran over one,
+    None where it ran over one array (the collapsed θ). Dtypes are kept."""
     zero_nans, (adam, _) = opt_state
     t = _tensor(device)
-    return {"found_nan": _tree(zero_nans.found_nan, t), "count": t(adam.count),
-            "mu": _tree(adam.mu, t), "nu": _tree(adam.nu, t)}
+    tree = t if params_type is None else lambda x: _params(params_type, x, t)
+    return {"found_nan": tree(zero_nans.found_nan), "count": t(adam.count),
+            "mu": tree(adam.mu), "nu": tree(adam.nu)}

@@ -13,12 +13,14 @@ Regression_FITC_SoR), one runner for each of its runners:
   TPU emulates float64). Both Grams of a step, Kuu 600×600 and Kux
   600×10000, go through the hand-written CUDA kernel; their VJP is in
   matmuls;
-- ``kin40k``: the uncollapsed minibatch SVGP (batches of 500), float64 as
-  in JAX (plain Grams by dtype);
+- ``kin40k``: the uncollapsed minibatch SVGP (batches of 500);
 - ``banana``: the Bernoulli-probit ELBO, M = 500, batches of 200;
-- ``fitc_sor_kin40k``: SoR and FITC on the NLML at kin40k width, float64;
+- ``fitc_sor_kin40k``: SoR and FITC on the NLML at kin40k width;
 - ``toy_regression``, ``toy_classification`` and ``fitc_sor_toy`` on the
   port's local toy draws.
+
+All but the first run in float64, as the JAX runners do, so their Grams
+take the plain route by dtype.
 
 The inducing inputs are M training rows drawn by ``--seed`` (the kin40k
 and banana runners of this package do the same), or the toy runners' grids:
@@ -34,8 +36,8 @@ prints one JSON line per runner named (``toy_regression`` and
 ``toy_classification`` when none is). ``--steps`` and ``--epochs`` replace
 the runners' defaults; ``--device cpu`` runs on the host. Every line holds
 the runner's accuracy, its training seconds (host clock between two
-``torch.cuda.synchronize()`` calls), its kernel launches and the card's
-name and power limit from nvidia-smi; ``kin40k_collapsed`` adds SMSE and
+``torch.cuda.synchronize()`` calls) and the card's name and power limit
+from nvidia-smi; ``kin40k_collapsed`` adds its kernel launches, SMSE and
 −ELBO by snapshot and the per-step host and device time.
 """
 
@@ -52,7 +54,7 @@ from ..infer.svgp import (collapsed_opt_init, collapsed_predict, collapsed_step,
                           vsgp_optimizer)
 from ..nodes.probit import ndtr
 from ..ops.kernels import Kernel, softplus
-from ..ops.se_gram import se_gram_cuda
+from ..ops.se_gram import _kernel_fn, se_gram_cuda
 from ..utils.datasets import (toy_classification, toy_classification_reference, toy_sinc,
                               toy_sinc_reference)
 from ..utils.metrics import error_rate, num_error, smse
@@ -70,13 +72,6 @@ TARGET_SMSE = 0.087478  # the reference's kin40k VSGP SMSE (BASELINE.md)
 # the collapsed run's fixed likelihood variance and Kuu jitter (the
 # reference's lik_noise and jitter, Regression_VSGP.ipynb cells 15-19)
 COLLAPSED_NOISE, COLLAPSED_JITTER = 0.01, 1e-5
-
-
-def _build_kernel(dev):
-    if dev.type == "cuda":
-        from ..ops.se_gram import _kernel_fn
-
-        _kernel_fn()  # build and load the kernel before the clock starts
 
 
 def _device(dev):
@@ -116,7 +111,8 @@ def run_kin40k_collapsed(steps: int = 400, eval_every: int = 25, learning_rate: 
     ds, theta0, Xu, Xb, yb = _kin40k(data, seed, m_inducing, n_train, n_test, 500, dev,
                                      torch.float32)
     X, y = Xb.reshape(-1, Xb.shape[-1]), yb.reshape(-1)
-    _build_kernel(dev)
+    if dev.type == "cuda":
+        _kernel_fn()  # build and load the kernel before the clock starts
     # warm-up outside the clock (the JAX runner compiles its chunk there):
     # the libraries' handles and workspaces, on a copy of the state
     fit_svgp_collapsed_resumable(KERNEL, theta0, collapsed_opt_init(theta0, learning_rate),
@@ -192,56 +188,48 @@ def run_kin40k_collapsed(steps: int = 400, eval_every: int = 25, learning_rate: 
 
 
 def run_kin40k(epochs: int = 2200, m_inducing: int = 600, batch: int = 500, seed: int = 1,
-               data: str = "synthetic", device="cuda", dtype=torch.float64) -> dict:
+               data: str = "synthetic", device="cuda") -> dict:
     """The uncollapsed minibatch SVGP (fixed noise 0.01, AdaMax 0.002), in
-    float64 as the JAX runner; ``dtype=torch.float32`` takes the kernel."""
-    dev = torch.device(device)
+    float64 as the JAX runner."""
+    dev, dtype = torch.device(device), torch.float64
     ds, theta0, Xu, Xb, yb = _kin40k(data, seed, m_inducing, 10_000, 30_000, batch, dev,
                                      dtype)
     params = init_svgp(theta0, m_inducing, dtype, noise=0.01)
-    _build_kernel(dev)
     synchronize(dev)
-    se_gram_cuda.launches = 0
     t0 = time.perf_counter()
     params = fit_svgp(KERNEL, params, Xu, Xb, yb, Xb.shape[0] * Xb.shape[1],
                       likelihood="gaussian", epochs=epochs, learn_noise=False)
     synchronize(dev)
     train_s = time.perf_counter() - t0
-    launches = se_gram_cuda.launches
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
     with torch.no_grad():
         mean, _ = svgp_predict(KERNEL, params, Xu, X_test)
     return {"runner": "kin40k", "value": train_s, "unit": "s", "epochs": epochs,
             "smse": float(smse(torch.as_tensor(ds.y_test), mean.cpu().double())),
-            "gram_launches": launches, "dtype": str(dtype).removeprefix("torch."),
-            "device": _device(dev), "data": data, "seed": seed,
+            "dtype": "float64", "device": _device(dev), "data": data, "seed": seed,
             "theta_softplus": softplus(params.theta).tolist()}
 
 
 def run_banana(epochs: int = 1000, m_inducing: int = 500, batch: int = 200, seed: int = 1,
-               data: str = "synthetic", device="cuda", dtype=torch.float64) -> dict:
+               data: str = "synthetic", device="cuda") -> dict:
     """The Bernoulli-probit SVGP (AdaMax 0.002), float64 as the JAX runner."""
-    dev = torch.device(device)
+    dev, dtype = torch.device(device), torch.float64
     ds = banana_runner.load_data(data, seed)
     theta0, Xu, Xb, yb, _, _ = banana_runner.setup(ds, m_inducing, batch, seed, dev, dtype)
     params = init_svgp(theta0, m_inducing, dtype)
-    _build_kernel(dev)
     synchronize(dev)
-    se_gram_cuda.launches = 0
     t0 = time.perf_counter()
     params = fit_svgp(KERNEL, params, Xu, Xb, yb, Xb.shape[0] * Xb.shape[1],
                       likelihood="bernoulli", epochs=epochs)
     synchronize(dev)
     train_s = time.perf_counter() - t0
-    launches = se_gram_cuda.launches
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
     with torch.no_grad():
         mean, var = svgp_predict(KERNEL, params, Xu, X_test)
     errs, rate = _classify(mean, var, ds.y_test)
     return {"runner": "banana", "value": train_s, "unit": "s", "epochs": epochs,
             "errors": errs, "error_rate": rate, "n_test": int(len(ds.y_test)),
-            "gram_launches": launches, "dtype": str(dtype).removeprefix("torch."),
-            "device": _device(dev), "data": data, "seed": seed,
+            "dtype": "float64", "device": _device(dev), "data": data, "seed": seed,
             "theta_softplus": softplus(params.theta).tolist()}
 
 
@@ -264,35 +252,30 @@ def _fitc_sor(kernel, theta0, Xu, X, y, X_test, y_test, steps, jitter):
 
 
 def run_fitc_sor_kin40k(steps: int = 300, m_inducing: int = 600, seed: int = 1,
-                        data: str = "synthetic", device="cuda", dtype=torch.float64) -> dict:
+                        data: str = "synthetic", device="cuda") -> dict:
     """SoR and FITC (learned noise, jitter 1e-6, AdaMax 0.05) at kin40k
     width, float64 as the JAX runner."""
-    dev = torch.device(device)
+    dev, dtype = torch.device(device), torch.float64
     ds, theta0, Xu, Xb, yb = _kin40k(data, seed, m_inducing, 10_000, 30_000, 500, dev, dtype)
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
-    _build_kernel(dev)
     synchronize(dev)
-    se_gram_cuda.launches = 0
     out = _fitc_sor(KERNEL, theta0, Xu, Xb.reshape(-1, Xb.shape[-1]), yb.reshape(-1), X_test,
                     ds.y_test, steps, 1e-6)
     return {"runner": "fitc_sor_kin40k", "steps": steps, **out,
-            "gram_launches": se_gram_cuda.launches,
-            "dtype": str(dtype).removeprefix("torch."), "device": _device(dev),
+            "dtype": "float64", "device": _device(dev),
             "data": data, "seed": seed}
 
 
-def run_toy_regression(epochs: int = 5000, data: str = "local", device="cuda",
-                       dtype=torch.float64) -> dict:
+def run_toy_regression(epochs: int = 5000, data: str = "local", device="cuda") -> dict:
     """The reference's toy configuration: fixed noise 0.01, jitter 1e-5,
     ``epochs`` full-batch AdaMax(0.002) steps (Regression_VSGP cells 5-10),
     M = 20 inducing inputs on the toy runner's grid over [−4, 4]."""
     from .toy_regression import setup
 
-    dev = torch.device(device)
+    dev, dtype = torch.device(device), torch.float64
     ds = _toy(data, toy_sinc_reference, toy_sinc)
     theta0, Xu, X, y, _, _ = setup(ds, 20, dev, dtype)
     params = init_svgp(theta0, Xu.shape[0], dtype, noise=0.01)
-    _build_kernel(dev)
     synchronize(dev)
     t0 = time.perf_counter()
     params = fit_svgp(KERNEL, params, Xu, X[None], y[None], len(y), likelihood="gaussian",
@@ -304,21 +287,19 @@ def run_toy_regression(epochs: int = 5000, data: str = "local", device="cuda",
         mean, _ = svgp_predict(KERNEL, params, Xu, X_test, jitter=1e-5)
     return {"runner": "toy_regression", "value": train_s, "unit": "s", "epochs": epochs,
             "smse": float(smse(torch.as_tensor(ds.y_test), mean.cpu().double())),
-            "dtype": str(dtype).removeprefix("torch."), "device": _device(dev),
+            "dtype": "float64", "device": _device(dev),
             "data": data, "theta_softplus": softplus(params.theta).tolist()}
 
 
-def run_toy_classification(epochs: int = 3000, data: str = "local", device="cuda",
-                           dtype=torch.float64) -> dict:
+def run_toy_classification(epochs: int = 3000, data: str = "local", device="cuda") -> dict:
     """Bernoulli-probit SVGP on the toy draw (AdaMax 0.002), M = 15
     inducing inputs on the toy runner's grid over [−5, 5]."""
     from .toy_classification import setup
 
-    dev = torch.device(device)
+    dev, dtype = torch.device(device), torch.float64
     ds = _toy(data, toy_classification_reference, toy_classification)
     theta0, Xu, X, y = setup(ds, 15, dev, dtype)[:4]
     params = init_svgp(theta0, Xu.shape[0], dtype)
-    _build_kernel(dev)
     synchronize(dev)
     t0 = time.perf_counter()
     params = fit_svgp(KERNEL, params, Xu, X[None], y[None], len(y), likelihood="bernoulli",
@@ -331,24 +312,22 @@ def run_toy_classification(epochs: int = 3000, data: str = "local", device="cuda
     errs, rate = _classify(mean, var, ds.y_test)
     return {"runner": "toy_classification", "value": train_s, "unit": "s", "epochs": epochs,
             "errors": errs, "error_rate": rate, "n_test": int(len(ds.y_test)),
-            "dtype": str(dtype).removeprefix("torch."), "device": _device(dev),
+            "dtype": "float64", "device": _device(dev),
             "data": data, "theta_softplus": softplus(params.theta).tolist()}
 
 
-def run_fitc_sor_toy(steps: int = 800, data: str = "local", device="cuda",
-                     dtype=torch.float64) -> dict:
+def run_fitc_sor_toy(steps: int = 800, data: str = "local", device="cuda") -> dict:
     """SoR and FITC on the toy draw (the legacy notebook's toy run,
     jitter 1e-8), M = 20 on the toy regression grid."""
     from .toy_regression import setup
 
-    dev = torch.device(device)
+    dev, dtype = torch.device(device), torch.float64
     ds = _toy(data, toy_sinc_reference, toy_sinc)
     theta0, Xu, X, y, _, _ = setup(ds, 20, dev, dtype)
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
-    _build_kernel(dev)
     out = _fitc_sor(KERNEL, theta0, Xu, X, y, X_test, ds.y_test, steps, 1e-8)
     return {"runner": "fitc_sor_toy", "steps": steps, **out,
-            "dtype": str(dtype).removeprefix("torch."), "device": _device(dev),
+            "dtype": "float64", "device": _device(dev),
             "data": data}
 
 

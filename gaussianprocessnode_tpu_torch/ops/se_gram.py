@@ -170,9 +170,10 @@ class _SEGramFused(torch.autograd.Function):
     (``pallas_gram.py::_se_gram_bwd``), as torch.matmul GEMMs. Each
     cotangent comes back in its own input's dtype; Z̄ and X̄ are computed
     only when Z or X needs a gradient (the θ-steps differentiate σ² and ℓ
-    alone). The backward is differentiable again: under ``create_graph`` it
-    takes K anew through this Function, so a second derivative (a Hessian
-    by reverse over reverse) holds K's dependence on the inputs."""
+    alone). The backward is differentiable again: K is saved as this
+    Function's output, so under ``create_graph`` it unpacks with its
+    grad_fn and a second derivative (a Hessian by reverse over reverse)
+    holds K's dependence on the inputs."""
 
     @staticmethod
     def forward(ctx, Z, X, variance, lengthscales):
@@ -183,11 +184,6 @@ class _SEGramFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, G):
         Z, X, variance, lengthscales, K = ctx.saved_tensors
-        if torch.is_grad_enabled():
-            # a gradient of this gradient is asked for (create_graph, as in
-            # the Laplace rule's Hessian): K again, differentiably, so that
-            # the second derivative holds K's dependence on the inputs
-            K = _SEGramFused.apply(Z, X, variance, lengthscales)
         need_z, need_x = ctx.needs_input_grad[:2]
         ls = lengthscales.to(Z.dtype).reshape(-1).expand(Z.shape[1])
         W = G * K

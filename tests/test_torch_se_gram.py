@@ -166,6 +166,25 @@ def test_fused_vjp_matches_autograd_of_plain_version(ard):
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("ard", [True, False])
+def test_fused_vjp_is_differentiable_again(ard):
+    """The VJP under create_graph (reverse over reverse, as the MultiSGP
+    Laplace rule takes its Hessian): K is saved as the Function's output
+    and unpacks with its grad_fn, so the second derivative holds K's
+    dependence on every input. gradgradcheck in f64 (its own finite
+    differences, atol 1e-5 / rtol 1e-3), then the Hessian in Z against the
+    plain version's (f64, 1e-12 absolute)."""
+    rng = np.random.default_rng(5)
+    vals = (rng.standard_normal((4, 2)), rng.standard_normal((5, 2)), np.array(1.3),
+            np.array([0.7, 1.2]) if ard else np.array(0.9))
+    args = [torch.tensor(v, requires_grad=True) for v in vals]
+    assert torch.autograd.gradgradcheck(sg.se_gram_fused, args)
+    Z, X, v, ls = (torch.tensor(a) for a in vals)
+    H = [torch.autograd.functional.hessian(lambda z: torch.sum(f(z, X, v, ls) ** 2), Z)
+         for f in (sg.se_gram_fused, sg.se_gram_reference)]
+    np.testing.assert_allclose(H[0].numpy(), H[1].numpy(), rtol=0, atol=1e-12)
+
+
 def _t(shape, dtype=torch.float32):
     return torch.ones(shape, dtype=dtype)
 

@@ -238,6 +238,16 @@ def test_vsgp_optimizer_is_zero_nans_then_adamax_without_clipping():
     cstate = clipped.init(tp)
     clipped.update_(tg, cstate)
     assert not torch.allclose(cstate["mu"].theta, tstate["mu"].theta)
+    # the JAX state, carried over, is the port's leaf for leaf
+    cs = convert.adamax_state_from_jax(jax.tree.map(np.asarray, jstate), ts.SVGPParams,
+                                       device="cpu")
+    assert int(cs["count"]) == int(tstate["count"]) == 2
+    assert isinstance(cs["found_nan"], ts.SVGPParams)
+    assert [bool(f) for f in cs["found_nan"]] == [bool(f) for f in tstate["found_nan"]]
+    for key in ("mu", "nu"):
+        assert isinstance(cs[key], ts.SVGPParams)
+        close_tree(cs[key], getattr(jstate[1][0], key), 0.0)
+        close_tree(tstate[key], getattr(jstate[1][0], key), 1e-15)
 
 
 def test_init_and_params_converter_match_jax():
