@@ -29,9 +29,14 @@ kernel against plain); trains the VSGP baselines at kin40k width (50
 collapsed-bound steps, two minibatch ``fit_svgp`` epochs and 20 FITC
 steps, each through the kernel and through the plain Gram, held to each
 other; the collapsed θ scored in float64 on the card and held to the host);
-and evaluates the pendulum GPSSM's M-step objective and its gradient in
+evaluates the pendulum GPSSM's M-step objective and its gradient in
 float32 (kernel against plain) and the MultiSGP node's rules in float64
-(card against host). It prints
+(card against host); and runs the pendulum GPSSM family at the runner's
+full width (T = 300 / 400, M = 48, D = 2): the runner itself for 2
+epochs, then its epochs, the Jacobi, Gauss-Seidel, parallel-in-time and
+controlled smoothers and the streaming filter through the kernel and
+through the plain Gram, held to each other, with float64 sweeps and the UT
+smoother held card against host. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -39,7 +44,8 @@ float32 (kernel against plain) and the MultiSGP node's rules in float64
   600×600×8 and 600×500×8; banana 500×4000×2, 500×500×2, 500×200×2 and
   the test predictions 500×1300×2; classifier serving 500×30000×2; the toy
   workloads' Kuu, Kux, test rows and expected-Ψ point Grams; the pendulum
-  objective's 48×1200×2 and 48×48×2): the
+  objective's 48×1200×2 and 48×48×2; the GPSSM chain's 48×1200×2, its
+  filter step's 48×4×2 and the controlled chain's Ψ Gram 48×1800×3): the
   kernel's device time (its launches replayed from a CUDA graph), its time
   in a Python loop of launches between CUDA events (host cost included),
   the time of ``fill_`` on an output of the same size (the store ceiling
@@ -123,7 +129,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/11 device: start")
+    say("phase 1/12 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -137,12 +143,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/11 device: done")
+    say("phase 1/12 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/11 build: start")
+    say("phase 2/12 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -152,7 +158,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/11 build: done")
+    say("phase 2/12 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -183,7 +189,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/11 kernel vs plain: start")
+    say("phase 3/12 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -259,12 +265,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/11 kernel vs plain: done")
+    say("phase 3/12 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/11 serving: start")
+    say("phase 4/12 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -335,7 +341,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/11 serving: done")
+    say("phase 4/12 serving: done")
     return handle, X, launches
 
 
@@ -411,7 +417,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/11 times: start")
+    say("phase 5/12 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -429,7 +435,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/11 times: done")
+    say("phase 5/12 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -504,7 +510,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/11 training: start")
+    say("phase 6/12 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -607,7 +613,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/11 training: done")
+    say("phase 6/12 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -676,7 +682,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/11 banana training: start")
+    say("phase 7/12 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -845,7 +851,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/11 banana training: done")
+    say("phase 7/12 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -875,7 +881,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/11 classifier serving: start")
+    say("phase 8/12 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -976,7 +982,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/11 classifier serving: done")
+    say("phase 8/12 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1041,7 +1047,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/11 toy workloads: start")
+    say("phase 9/12 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1182,7 +1188,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/11 toy workloads: done")
+    say("phase 9/12 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1239,7 +1245,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/11 VSGP and FITC baselines: start")
+    say("phase 10/12 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1438,7 +1444,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/11 VSGP and FITC baselines: done")
+    say("phase 10/12 VSGP and FITC baselines: done")
     return out
 
 
@@ -1500,7 +1506,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/11 MultiSGP node and M-step objective: start")
+    say("phase 11/12 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1633,7 +1639,457 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/11 MultiSGP node and M-step objective: done")
+    say("phase 11/12 MultiSGP node and M-step objective: done")
+    return out
+
+
+# the pendulum GPSSM family (experiments/pendulum.py; infer/chain_smoother.py,
+# pit_gpssm.py, gpssm_control.py, ut_smoother.py; serve.GPSSMFilter) at the
+# runner's full width: T = 300 training and 400 test steps of the runner's
+# draw (utils/datasets.py::pendulum, seed 69), M = 48 on pendulum_inducing(),
+# D = 2, spherical-radial cubature (4 points per marginal)
+GP_T, GP_T_TEST, GP_M, GP_D = 300, 400, 48, 2
+GP_EPOCHS, GP_E_SWEEPS, GP_LBFGS = 2, 25, 25  # the runner's epoch: 25 sweeps, 25 L-BFGS steps
+GP_JACOBI, GP_GS, GP_PIT, GP_POLISH, GP_CTRL, GP_SMOOTH = 30, 2, 4, 10, 4, 150
+GP_SPLIT, GP_CTRL_TEST = 200, 50  # the filter's first window; the controlled filter's steps
+# the controlled chain: Din = D + 1, its inducing inputs a 4×4×3 grid over
+# [−2, 2]×[−4, 4]×[−1, 1] (κ(Kuu) moderate: its Kuu⁻¹ is factored in the
+# model's dtype at jitter 1e-12, as in the JAX package), θ = softplus⁻¹(1)
+GP_DC = 1
+GP_SHAPES = ((GP_M, GP_T * 2 * GP_D, GP_D, "GPSSM chain Grams (in-message Psi, refinement, "
+              "q(v)/q(W) Psi; 3 per Jacobi sweep)"),
+             (GP_M, 2 * GP_D, GP_D, "GPSSM filter / Gauss-Seidel step Gram"),
+             (GP_M, GP_T * 2 * (GP_D + GP_DC), GP_D + GP_DC,
+              "controlled GPSSM chain Psi Gram (6 points per augmented marginal)"))
+# Limits, kernel route against plain route (float32): maxima over the
+# compared arrays relative to the plain array's largest entry (x-means: max
+# absolute difference). On the pendulum's grid (inducing pairs 9e-5 apart,
+# κ(Kuu) ≈ 1e6 at the f32 jitter 3.6e-5) the in-message's Ψ2 contraction
+# ½tr(W̄)·Kuu⁻¹ reaches ~1e7, so each refinement's log-density carries ~1
+# nat of float32 rounding: on the host, a plain Gram perturbed by ±1 ulp
+# moved one Jacobi sweep from a shared state by 1.4e-2 in the x-means and
+# 3.8e-2 in the x-covariances, a cold epoch's θ by 1.8e-3
+# (scripts/gpssm_rounding_twin.py). Those schedules are held
+# to the JAX package's own float32 limits (tests/test_e2e.py::TestF32FirstMode:
+# x-means within 0.1, free energy within 15 %) and θ to 0.05. The steps
+# without that contraction are held tight: the PIT sweep's smoothed moments
+# (±1-ulp twin: 1.5e-6; its q(W) rate and free energy, which contract Kuu⁻¹,
+# 2.8e-3 and 2.4e-3), the controlled chain on its well-conditioned grid
+# (κ ≈ 48; twin ≤ 4.7e-6) and the filters (twin ≤ 1.8e-6).
+GP_XMEAN_ABS = 0.1
+GP_FE_RTOL = 0.15
+GP_THETA_RTOL = 0.05
+GP_TIGHT_RTOL = 1e-4
+GP_PIT_KUU_RTOL = 2e-2    # the PIT sweep's q(W) rate and free energy
+# float64 card against host, from one shared state: on this grid κ(Kuu) ≈
+# 3e13 at the float64 jitter 1e-12, so the sweeps and the free energy carry
+# κ·ε of rounding: on the host, a plain Gram perturbed by ±1 ulp moved one
+# Jacobi sweep by 6.0e-5, one Gauss-Seidel sweep by 7.4e-5, the free energy
+# by 2.9e-4, one PIT sweep by 1.9e-6 and the 400-step filter by 3.9e-15
+# (scripts/gpssm_rounding_twin.py)
+GP_F64_LIMITS = {"jacobi_sweep": 1e-3, "sequential_sweep": 1e-3, "free_energy": 1e-3,
+                 "pit_sweep": 1e-5, "filter": 1e-10}
+GP_UT_RTOL = 1e-10        # the UT smoother: no Gram, well conditioned
+
+
+def jacobi_launches(n, fe=True):
+    """SE Gram launches of one ``gpssm_vmp`` call: Kuu, three per sweep, two
+    for the free energy (Kuu, the node energies' Ψ)."""
+    return 1 + 3 * n + (2 if fe else 0)
+
+
+def sequential_launches(n, T, fe=True):
+    """``gpssm_vmp_sequential``: Kuu, 2T + 1 per sweep, the free energy's 2."""
+    return 1 + (2 * T + 1) * n + (2 if fe else 0)
+
+
+def pit_launches(n_pit, n_polish, fe=True):
+    """``gpssm_vmp_pit``: Kuu and 2 per PIT sweep, then ``gpssm_vmp``'s."""
+    return 1 + 2 * n_pit + (jacobi_launches(n_polish, fe) if n_polish else (2 if fe else 0))
+
+
+def _relmax(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _state_diff(a, b) -> dict:
+    """State a against state b: max |Δ x-mean| and the relative differences
+    of the other fields."""
+    d = {"x_means_abs": float((a.x_means.double() - b.x_means.double()).abs().max())}
+    for f in ("x_covs", "xi_v", "prec_v", "W_rate"):
+        d[f] = _relmax(getattr(a, f), getattr(b, f))
+    return d
+
+
+def _finite_state(s) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in s)
+
+
+def _gp_hyperopt(s, kernel, theta, state, epochs, counts=None):
+    """``epochs`` of the runner's epoch (experiments/pendulum.py::run) with
+    ``kernel`` in place of the runner's: 25 warm Jacobi sweeps, then 25
+    L-BFGS steps on the M-step objective. Returns (θ, state, FE trace)."""
+    from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
+    from gaussianprocessnode_tpu_torch.infer.training import lbfgs_solve
+    from gaussianprocessnode_tpu_torch.objectives import neg_log_backwardmess_multi
+    from gaussianprocessnode_tpu_torch.ops.quadrature import SphericalRadial
+
+    s = dict(s, kernel=kernel)
+    fes = []
+    for _ in range(epochs):
+        state, fe = runner.vmp(s, theta, GP_E_SWEEPS, init_state=state)
+        kw = dict(kernel=kernel, Xu=s["Xu"], method=SphericalRadial(),
+                  **runner.mstep_stats(state, GP_M, GP_D))
+        theta, _ = lbfgs_solve(lambda th, kw=kw: neg_log_backwardmess_multi(th, **kw), theta,
+                               max_steps=GP_LBFGS, counts=counts)
+        fes.append(fe)
+    return theta, state, torch.stack(fes)
+
+
+def _gp_control_problem(s, seed, dtype):
+    """The controlled chain's inputs from ``seed``: the training
+    observations, a smooth control u_t, the 48-point grid in D + 1 dims."""
+    rng = np.random.default_rng(seed)
+    g = np.meshgrid(np.linspace(-2, 2, 4), np.linspace(-4, 4, 4), np.linspace(-1, 1, 3),
+                    indexing="ij")
+    Xu = np.stack([a.ravel() for a in g], axis=1)
+    t = np.arange(GP_T + GP_CTRL_TEST)
+    us = np.sin(0.05 * t + rng.uniform(0, 2 * np.pi))[:, None] + 0.05 * rng.standard_normal(
+        (t.size, 1))
+    dev = s["Xu"].device
+    T = lambda a: torch.as_tensor(a).to(dtype).to(dev)  # noqa: E731
+    theta = T(np.log(np.expm1(np.ones(1 + GP_D + GP_DC))))
+    return theta, T(Xu), T(us[:GP_T]), T(us[GP_T:])
+
+
+def gp_routes(kern, plain, dev, seed):
+    """Every GPSSM engine through ``kern`` and through ``plain`` on ``dev``
+    in float32, from the same inputs: returns (diffs, shared θ, shared
+    state, the kernel route's launches by engine, the setup)."""
+    from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
+    from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
+    from gaussianprocessnode_tpu_torch.infer import gpssm_control as tcc
+    from gaussianprocessnode_tpu_torch.infer.pit_gpssm import gpssm_vmp_pit
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.serve import GPSSMFilter
+
+    s = runner.setup(dev, torch.float32)
+    prior = (s["P"], s["prior_x0_mean"], s["prior_x0_cov"], s["prior_v"], runner.PRIOR_W_DF,
+             s["prior_W_scale"])
+    y, yt, Xu = s["y_train"], s["y_test"], s["Xu"]
+    diffs, launches = {}, {}
+
+    def counted(name, fn):
+        n0 = se_gram_cuda.launches
+        r = fn(kern)
+        launches[name] = se_gram_cuda.launches - n0
+        n1 = se_gram_cuda.launches
+        rp = fn(plain)
+        if se_gram_cuda.launches != n1:
+            raise SmokeFailure(f"{name}: the plain route launched the kernel")
+        return r, rp
+
+    # the hyperparameter epochs: epoch 1 from the cold start, epoch 2 from the
+    # plain route's epoch-1 carry in both routes
+    caps = {}
+    (thk, stk, fek), (thp, stp, fep) = counted(
+        "epoch_1", lambda k: _gp_hyperopt(s, k, s["theta0"], None, 1, caps))
+    diffs["epoch_1"] = dict(theta=_relmax(thk, thp), fe=_relmax(fek, fep), **_state_diff(stk, stp))
+    (thk, stk, fek), (thp, stp, fep) = counted(
+        "epoch_2", lambda k: _gp_hyperopt(s, k, thp, stp, 1, caps))
+    diffs["epoch_2"] = dict(theta=_relmax(thk, thp), fe=_relmax(fek, fep), **_state_diff(stk, stp))
+    theta, S = thp, stp  # the shared θ and state from here on
+
+    def vmp(k, **kw):
+        return tc.gpssm_vmp(k, theta, Xu, y, *prior, **kw)
+
+    # Jacobi: a cold schedule, and one sweep from the shared state
+    (sk, fk), (sp, fp) = counted("jacobi", lambda k: vmp(k, n_iters=GP_JACOBI))
+    diffs["jacobi_cold"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    jac_k, jac_p = sk, sp
+    (sk, fk), (sp, fp) = counted("jacobi_sweep", lambda k: vmp(k, n_iters=1, init_state=S))
+    diffs["jacobi_sweep"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    # Gauss-Seidel from the shared state
+    (sk, fk), (sp, fp) = counted("sequential", lambda k: tc.gpssm_vmp_sequential(
+        k, theta, Xu, y, *prior, n_iters=GP_GS, init_state=S))
+    diffs["sequential"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    # parallel in time: a cold schedule, and one PIT sweep from the shared state
+    (sk, fk), (sp, fp) = counted("pit", lambda k: gpssm_vmp_pit(
+        k, theta, Xu, y, *prior, n_pit=GP_PIT, n_polish=GP_POLISH))
+    diffs["pit_cold"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    (sk, fk), (sp, fp) = counted("pit_sweep", lambda k: gpssm_vmp_pit(
+        k, theta, Xu, y, *prior, n_pit=1, n_polish=0, init_state=S))
+    diffs["pit_sweep"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    # the controlled chain (Din = 3): a cold schedule, one sweep from the plain
+    # route's state, and the controlled filter
+    th_c, Xu_c, us, us_t = _gp_control_problem(s, seed, torch.float32)
+
+    def ctrl(k, **kw):
+        return tcc.gpssm_control_vmp(k, th_c, Xu_c, y, us, *prior, **kw)
+
+    (sk, fk), (sp, fp) = counted("control", lambda k: ctrl(k, n_iters=GP_CTRL))
+    diffs["control_cold"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    S_c = sp
+    (sk, fk), (sp, fp) = counted("control_sweep", lambda k: ctrl(k, n_iters=1, init_state=S_c))
+    diffs["control_sweep"] = dict(fe=_relmax(fk, fp), **_state_diff(sk, sp))
+    (mk, _), (mp, _) = counted("control_filter", lambda k: tcc.one_step_ahead_control(
+        k, th_c, Xu_c, S_c, yt[:GP_CTRL_TEST], us_t, s["P"]))
+    diffs["control_filter"] = _relmax(mk, mp)
+    # the filter: one window of 400 steps, the same as two chained windows,
+    # kernel against plain, from the shared state
+    hk = GPSSMFilter.from_state(kern, theta, Xu, S, s["P"])
+    hp = GPSSMFilter.from_state(plain, theta, Xu, S, s["P"])
+    n0 = se_gram_cuda.launches
+    m_one, c_one, end_one = hk(yt)
+    launches["filter"] = se_gram_cuda.launches - n0
+    m1, _, mid = hk(yt[:GP_SPLIT])
+    m2, _, end2 = hk(yt[GP_SPLIT:], mid)
+    chained = (bool(torch.equal(torch.cat([m1, m2]), m_one))
+               and bool(torch.equal(end2[0], end_one[0])) and bool(torch.equal(end2[1], end_one[1])))
+    n1 = se_gram_cuda.launches
+    m_p, _, _ = hp(yt)
+    if se_gram_cuda.launches != n1:
+        raise SmokeFailure("filter: the plain route launched the kernel")
+    diffs["filter"] = _relmax(m_one, m_p)
+    finite = (all(_finite_state(x) for x in (jac_k, jac_p, S, S_c))
+              and bool(torch.isfinite(m_one).all()) and bool(torch.isfinite(mk).all()))
+    return dict(diffs=diffs, theta=theta, state=S, launches=launches, setup=s, prior=prior,
+                chained=chained, finite=finite, graph_captures=caps.get("graph_captures", 0),
+                jacobi_state=jac_k)
+
+
+def gp_f64_pair(s, prior, theta, S, first=("cuda", None), second=("cpu", None)):
+    """One Jacobi sweep (with its free energy), one Gauss-Seidel sweep, one
+    PIT sweep, the free energy and the 400-step filter in float64, from one
+    shared state, on ``first`` = (device, kernel) against ``second`` (the
+    setup's kernel where None): the card against the host. Returns the
+    relative differences and whether ``first``'s results are finite."""
+    from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
+    from gaussianprocessnode_tpu_torch.infer.pit_gpssm import gpssm_vmp_pit
+
+    def calls(dev, k):
+        f64 = lambda t: t.to(torch.float64).to(dev)  # noqa: E731
+        th, Xu, y, yt = f64(theta), f64(s["Xu"]), f64(s["y_train"]), f64(s["y_test"])
+        pr = tuple(tc.MvGaussianNat(f64(p.xi), f64(p.prec)) if isinstance(p, tc.MvGaussianNat)
+                   else (f64(p) if isinstance(p, torch.Tensor) else p) for p in prior)
+        st = tc.GPSSMState(*(f64(t) for t in S))
+        k = k or s["kernel"]
+        r = {}
+        a, fe = tc.gpssm_vmp(k, th, Xu, y, *pr, n_iters=1, init_state=st)
+        r["jacobi_sweep"] = torch.cat([a.x_means.reshape(-1), a.x_covs.reshape(-1),
+                                       a.xi_v, a.W_rate.reshape(-1), fe.reshape(1)])
+        a, _ = tc.gpssm_vmp_sequential(k, th, Xu, y, *pr, n_iters=1, init_state=st,
+                                       compute_fe=False)
+        r["sequential_sweep"] = torch.cat([a.x_means.reshape(-1), a.x_covs.reshape(-1),
+                                           a.xi_v, a.W_rate.reshape(-1)])
+        a, _ = gpssm_vmp_pit(k, th, Xu, y, *pr, n_pit=1, n_polish=0, compute_fe=False,
+                             init_state=st)
+        r["pit_sweep"] = torch.cat([a.x_means.reshape(-1), a.x_covs.reshape(-1), a.xi_v,
+                                    a.W_rate.reshape(-1)])
+        r["free_energy"] = tc.gpssm_free_energy(k, th, Xu, y, *pr, st).reshape(1)
+        r["filter"] = tc.one_step_ahead(k, th, Xu, st, yt, pr[0])[0].reshape(-1)
+        return {key: v.detach().cpu() for key, v in r.items()}
+
+    a, b = calls(*first), calls(*second)
+    return {k: _relmax(a[k], b[k]) for k in a}, all(
+        bool(torch.isfinite(v).all()) for v in a.values())
+
+
+def _gp_ut_card_vs_host(s):
+    """The UT smoother (150 sweeps, float64), card against host."""
+    from gaussianprocessnode_tpu_torch.experiments.pendulum import PRIOR_W_DF, _pendulum_step
+    from gaussianprocessnode_tpu_torch.infer.ut_smoother import ut_smoother_vmp
+
+    def ut(dev):
+        f64 = lambda t: t.to(torch.float64).to(dev)  # noqa: E731
+        st = ut_smoother_vmp(_pendulum_step(s["dt"]), f64(s["y_train"]), f64(s["P"]),
+                             f64(s["prior_x0_mean"]), f64(s["prior_x0_cov"]), PRIOR_W_DF,
+                             f64(s["prior_W_scale"]), n_iters=GP_SMOOTH)
+        return torch.cat([st.x_means.reshape(-1), st.x_covs.reshape(-1),
+                          st.W_rate.reshape(-1)]).cpu()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = ut("cuda")
+    card_s = time.perf_counter() - t
+    return _relmax(card, ut("cpu")), card_s, bool(torch.isfinite(card).all())
+
+
+def phase_gpssm(seed, card):
+    """The pendulum GPSSM family at the runner's full width (T = 300 / 400,
+    M = 48, D = 2, float32 through the kernel unless said):
+
+    - the main path: ``experiments/pendulum.py::run`` itself, 2
+      hyperparameter epochs, the 150-sweep final smoothing, the 400-step
+      filter and the UT baseline, its Gram launches counted exactly;
+    - 2 epochs of the runner's epoch through the kernel and through the
+      plain Gram (epoch 2 from the plain route's epoch-1 carry in both);
+      from the plain route's θ and state: 30 cold Jacobi sweeps and one
+      warm, 2 Gauss-Seidel sweeps, ``gpssm_vmp_pit`` (4 PIT + 10 Jacobi
+      sweeps) and one PIT sweep, 4 controlled sweeps (Din = 3, controls
+      from ``seed``) and one, the controlled filter (50 steps) and the
+      400-step filter as one window and as two chained windows (which
+      must be equal), kernel route held to plain route, launches counted
+      per engine by formula;
+    - one Jacobi, Gauss-Seidel and PIT sweep, the free energy and the
+      filter in float64 on the card against the host; the UT smoother
+      (150 sweeps, float64) card against host;
+    - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
+      their device time (CUDA graph) and eager host time, and a filtered
+      step's; the chain's Gram shapes held to the plain Gram and timed."""
+    say("phase 12/12 GPSSM family: start")
+    from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
+    from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
+    from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
+    from gaussianprocessnode_tpu_torch.ops import quadrature as quad
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus", use_kernel=False)
+    out = {}
+
+    # the main path: counts at 0 just before, read just after
+    se_gram_cuda.launches = 0
+    res = runner.run(epochs=GP_EPOCHS, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    total = se_gram_cuda.launches
+    caps = res["lbfgs_graph_captures"]
+    # each M-step captures its objective once (an eager warm-up and the
+    # capture: Kuu and the point Gram each); the replays launch no Python
+    hyper = GP_EPOCHS * jacobi_launches(GP_E_SWEEPS) + 4 * caps
+    expect = hyper + jacobi_launches(GP_SMOOTH) + GP_T_TEST
+    print(f"pendulum runner float32 ({GP_EPOCHS} epochs, T={GP_T}, M={GP_M}): hyperopt "
+          f"{res['hyperopt_seconds']:.3f} s ({res['host_ms_per_epoch']:.1f} ms per epoch), "
+          f"smoothing {res['smoothing_seconds']:.3f} s; se_gram launches {total} (hyperopt "
+          f"{res['gram_launches']}, expected {hyper} and {expect} in all); SMSE smooth "
+          f"{res['smse_smooth']}, predict {res['smse_predict']}, UT {res['smse_ut_baseline']}; "
+          f"theta {res['theta_softplus']} [{card}]", flush=True)
+    check(res["finite"] and all(np.isfinite(res[k]).all() for k in
+                                ("smse_smooth", "smse_predict", "smse_ut_baseline")),
+          "pendulum runner: non-finite result")
+    check(caps == GP_EPOCHS, f"pendulum runner: {caps} graph captures, expected {GP_EPOCHS}")
+    check(res["gram_launches"] == hyper and total == expect,
+          f"pendulum runner: {res['gram_launches']}/{total} launches, expected {hyper}/{expect}")
+    out["runner"] = dict(launches=total, hyperopt_launches=hyper,
+                         **{k: res[k] for k in ("hyperopt_seconds", "smoothing_seconds",
+                                                "host_ms_per_epoch", "smse_smooth",
+                                                "smse_predict", "smse_ut_baseline",
+                                                "theta_softplus", "fe_trace")})
+
+    t = time.perf_counter()
+    r = gp_routes(kern, plain, "cuda", seed)
+    torch.cuda.synchronize()
+    routes_s = time.perf_counter() - t
+    L, d = r["launches"], r["diffs"]
+    T = GP_T
+    expect = {"epoch_1": jacobi_launches(GP_E_SWEEPS) + 4, "epoch_2": jacobi_launches(GP_E_SWEEPS) + 4,
+              "jacobi": jacobi_launches(GP_JACOBI), "jacobi_sweep": jacobi_launches(1),
+              "sequential": sequential_launches(GP_GS, T), "pit": pit_launches(GP_PIT, GP_POLISH),
+              "pit_sweep": pit_launches(1, 0), "control": jacobi_launches(GP_CTRL),
+              "control_sweep": jacobi_launches(1), "control_filter": GP_CTRL_TEST,
+              "filter": GP_T_TEST}
+    for name, v in d.items():
+        print(f"GPSSM {name} kernel vs plain: " + (f"{v:.3e}" if isinstance(v, float) else
+              ", ".join(f"{k} {x:.3e}" for k, x in v.items())) + f"; launches {L.get(name)}"
+              f" (expected {expect.get(name)})", flush=True)
+    print(f"GPSSM routes: {routes_s:.2f} s (host clock, both routes); chained filter windows "
+          f"equal one window: {r['chained']} [{card}]", flush=True)
+    check(r["finite"], "GPSSM: non-finite state or prediction")
+    check(r["chained"], "GPSSMFilter: two chained windows differ from one window")
+    check(L == expect, f"GPSSM launches {L}, expected {expect}")
+    for name in ("epoch_1", "epoch_2", "jacobi_cold", "jacobi_sweep", "sequential", "pit_cold",
+                 "control_cold"):
+        v = d[name]
+        check(v["x_means_abs"] <= GP_XMEAN_ABS and v["fe"] <= GP_FE_RTOL,
+              f"GPSSM {name}: kernel and plain disagree")
+    for name in ("epoch_1", "epoch_2"):
+        check(d[name]["theta"] <= GP_THETA_RTOL, f"GPSSM {name}: θ of kernel and plain disagree")
+    pit = d["pit_sweep"]
+    check(max(pit["x_means_abs"], pit["x_covs"], pit["xi_v"], pit["prec_v"]) <= GP_TIGHT_RTOL
+          and max(pit["W_rate"], pit["fe"]) <= GP_PIT_KUU_RTOL,
+          "GPSSM pit_sweep: kernel and plain disagree")
+    check(max(d["control_sweep"].values()) <= GP_TIGHT_RTOL,
+          "GPSSM control_sweep: kernel and plain disagree")
+    check(max(d["filter"], d["control_filter"]) <= GP_TIGHT_RTOL,
+          "GPSSM filter: kernel and plain disagree")
+    out["routes"] = dict(diffs=d, launches=L, seconds=routes_s)
+
+    # float64 on the card against the host, and the UT smoother
+    before = se_gram_cuda.launches
+    d64, fin64 = gp_f64_pair(r["setup"], r["prior"], r["theta"], r["state"])
+    d_ut, ut_s, fin_ut = _gp_ut_card_vs_host(r["setup"])
+    check(se_gram_cuda.launches == before, "float64 GPSSM launched the float32 kernel")
+    print("GPSSM float64 card vs host: " + ", ".join(f"{k} {v:.3e}" for k, v in d64.items())
+          + f" (limits {GP_F64_LIMITS}); UT smoother {GP_SMOOTH} sweeps {d_ut:.3e} (limit "
+          f"{GP_UT_RTOL:.0e}), {ut_s:.3f} s on the card", flush=True)
+    check(fin64 and fin_ut, "GPSSM float64: non-finite result on the card")
+    check(all(d64[k] <= GP_F64_LIMITS[k] for k in d64), "GPSSM float64: card and host disagree")
+    check(d_ut <= GP_UT_RTOL, "UT smoother: card and host disagree")
+    out["f64_card_vs_host"], out["ut_card_vs_host"] = d64, d_ut
+
+    # sync-free sweeps, then their device and host times (launches here are
+    # not counted on any path)
+    launches = se_gram_cuda.launches
+    s, prior, theta, S = r["setup"], r["prior"], r["theta"], r["state"]
+    y, Xu, P = s["y_train"], s["Xu"], s["P"]
+    kuu_inv = tc._kuu_inv_f64(kern, theta, Xu, torch.float32)
+    c = tc._chain_consts(kuu_inv, y, *prior[:3], prior[5])
+    S0_inv = c.S0_inv
+    jac = lambda: tc._jacobi_sweep(kern, theta, Xu, c, prior[3], prior[4], S)  # noqa: E731
+    pit = lambda: tp._pit_sweep(kern, theta, Xu, kuu_inv, S0_inv, y, P, prior[1],  # noqa: E731
+                                prior[2], prior[3], prior[4], S)
+    frozen = tc.filter_frozen(S, P)
+    carry = (S.x_means[-1], S.x_covs[-1])
+    step = lambda: tc.filter_stream(kern, theta, Xu, frozen, s["y_test"][:1], carry)  # noqa: E731
+    jac(), pit(), step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        jac(), pit()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    times = {}
+    for name, fn in (("jacobi_sweep", jac), ("pit_sweep", pit), ("filter_step", step)):
+        dev_ms = cuda_graph_time_ms(fn, iters=10, warmup=2)
+        host_ms, queue_ms = eager_ms(fn, 10)
+        times[name] = dict(device_ms=dev_ms, eager_host_ms=host_ms, queue_ms=queue_ms,
+                           idle=1.0 - dev_ms / host_ms)
+        print(f"GPSSM {name} float32: device {dev_ms:.4f} ms (CUDA graph), eager {host_ms:.4f} "
+              f"ms host clock (queued in {queue_ms:.4f} ms), idle share "
+              f"{1.0 - dev_ms / host_ms:.3f} [{card}]", flush=True)
+    se_gram_cuda.launches = launches
+    out["times"] = times
+
+    # the chain's Gram shapes, held to the plain version and timed
+    var, ls = plain.params(theta)
+    sr = quad.SphericalRadial()
+    pts, _ = quad.points_weights_multi(sr, S.x_means[:-1], S.x_covs[:-1])
+    pts = pts.reshape(-1, GP_D).contiguous()
+    th_c, Xu_c, us, _ = _gp_control_problem(s, seed, torch.float32)
+    m_a, V_a = tc.augment_control(S.x_means[:-1], S.x_covs[:-1], us)
+    pts_c, _ = quad.points_weights_multi(sr, m_a, V_a)
+    pts_c = pts_c.reshape(-1, GP_D + GP_DC).contiguous()
+    var_c, ls_c = plain.params(th_c)
+    errs, shapes = {}, []
+    for (M, N, Din, role), (Z, X, v_, l_) in zip(GP_SHAPES, (
+            (Xu, pts, var, ls), (Xu, pts[:2 * GP_D], var, ls), (Xu_c, pts_c, var_c, ls_c))):
+        l_ = l_.contiguous()
+        K = se_gram_cuda(Z, X, v_, l_)
+        errs[f"{M}x{N}x{Din}"] = _held_to_plain(f"{M}x{N}x{Din} ({role})", Z, X, v_, l_, K)
+        shapes.append(time_gram(Z, X, v_, l_, role, card))
+    se_gram_cuda.launches = launches
+    out.update(gram_max_abs=errs, shapes=shapes)
+    out["launches_by_path"] = {
+        "pendulum_hyperopt_f32": hyper,
+        "pendulum_runner_smoothing_and_filter_f32": total - hyper,
+        "gpssm_jacobi_f32": L["jacobi"], "gpssm_sequential_f32": L["sequential"],
+        "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
+        "gpssm_filter_f32": L["filter"]}
+    out["launches"] = (total + sum(L.values()))
+    say("phase 12/12 GPSSM family: done")
     return out
 
 
@@ -1661,6 +2117,7 @@ def main(argv=None) -> int:
         toy = phase_toy(card)
         vsgp = phase_vsgp(args.seed, card)
         multi = phase_multi(args.seed, card)
+        gpssm = phase_gpssm(args.seed, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -1677,7 +2134,8 @@ def main(argv=None) -> int:
                      + classifier["launches"] + toy["launches"]
                      + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
                      + vsgp["svgp"]["launches"]
-                     + vsgp["fitc"]["launches"] + multi["objective"]["launches"]),
+                     + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
+                     + gpssm["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -1690,7 +2148,8 @@ def main(argv=None) -> int:
                              "kin40k_collapsed_runner": vsgp["runner"]["launches"],
                              "svgp_minibatch_f32": vsgp["svgp"]["launches"],
                              "fitc_f32": vsgp["fitc"]["launches"],
-                             "multi_objective_f32": multi["objective"]["launches"]},
+                             "multi_objective_f32": multi["objective"]["launches"],
+                             **gpssm["launches_by_path"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -1707,7 +2166,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": t30["shape"],
         "shapes": (shapes + banana["shapes"] + [classifier["shape"]] + toy["shapes"]
-                   + multi["shapes"]),
+                   + multi["shapes"] + gpssm["shapes"]),
         "ms_600x10000": t10["device_ms"],
         "plain_ms_600x10000": t10["plain_ms"],
         "bound_ms_600x10000": t10["bound_ms"],
@@ -1725,6 +2184,7 @@ def main(argv=None) -> int:
         "toy": {k: v for k, v in toy.items() if k != "shapes"},
         "vsgp": vsgp,
         "multi": {k: v for k, v in multi.items() if k != "shapes"},
+        "gpssm": {k: v for k, v in gpssm.items() if k != "shapes"},
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

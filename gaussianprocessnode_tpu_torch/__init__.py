@@ -9,7 +9,8 @@ imports jax).
 Ported so far (kin40k regression and banana probit classification, their
 trainers and serving paths; the toy regression and classification
 workloads with the UniSGP node, quadrature, Ψ-statistics, batch VMP and the
-L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node):
+L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node;
+the GPSSM family with the pendulum runner):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussian / MvGaussianNat /
                            GammaShapeRate / Wishart / WishartFast /
@@ -21,13 +22,15 @@ L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node):
                            Newton–Schulz SPD inverse (with its VJP),
                            iterative refinement
     ops.quadrature         GH, SR, UT and GenUT rules, expectations, moment
-                           matching, GenUT statistics and joint forms
+                           matching (one product or a batch), GenUT
+                           statistics and joint forms
+    ops.scan               the associative (parallel prefix) scan
     ops.psi                exact and expected Ψ-statistics
     nodes.unisgp           the UniSGP node's rules and average energies
     nodes.probit           probit tilted moments (closed form and GH-32),
                            average energy, the :out probability
     nodes.multisgp         the MultiSGP node's rules (Laplace in-message
-                           included) and average energy
+                           included) and average energy (one node or many)
     objectives             ``neg_log_backwardmess_fast`` / ``_uncertain`` /
                            ``_multi`` / ``_gram`` and their gradients
     infer.batch_vmp        ``regression_vmp``, ``classification_vmp``,
@@ -41,17 +44,24 @@ L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node):
                            collapsed Titsias bound and their trainers
     infer.fitc             SoR / DTC / FITC marginal likelihoods, prediction
                            and trainer
-    serve                  ``SGPRegressor``, ``SGPClassifier``, ``serve_fused``,
-                           throughput timers
+    infer.chain_smoother   the GPSSM chain smoother (Jacobi and Gauss–Seidel),
+                           its free energy, the 1-step-ahead filter
+    infer.ut_smoother      the UT smoother with known dynamics
+    infer.pit_gpssm        the parallel-in-time GPSSM engine
+    infer.gpssm_control    the controlled GPSSM
+    serve                  ``SGPRegressor``, ``SGPClassifier``, ``GPSSMFilter``,
+                           ``serve_fused``, throughput timers
     convert                the JAX package's arrays → a serving handle, a
                            trainer carry, a batch VMP result, VSGP / FITC
-                           parameters or their AdaMax state
+                           parameters or their AdaMax state, a GPSSM or UT
+                           smoother state
     utils.datasets         the toy, kin40k and banana loaders, synthetic
-                           data of their shapes, the pendulum inducing grid
+                           data of their shapes, the pendulum data and its
+                           inducing grid
     utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
-    utils.optim            AdaMax at Flux's defaults, scipy L-BFGS-B and
-                           Nelder–Mead over torch objectives
+    utils.optim            bare optax AdaMax at Flux's defaults, scipy
+                           L-BFGS-B and Nelder–Mead over torch objectives
     experiments.kin40k     the kin40k training run on the card
     experiments.banana     the banana classification run on the card
     experiments.toy_regression, experiments.toy_classification
@@ -59,6 +69,7 @@ L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node):
     experiments.vsgp_baselines
                            the VSGP / FITC baseline runs (the collapsed
                            kin40k run on the card)
+    experiments.pendulum   the pendulum GPSSM run on the card
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

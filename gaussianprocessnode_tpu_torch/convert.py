@@ -15,7 +15,10 @@ so the port resumes a JAX run and both compute the same next epoch.
 the toy trainers. :func:`svgp_params_from_jax`, :func:`sparse_gp_params_from_jax`
 and :func:`adamax_state_from_jax` carry the VSGP and FITC trainers'
 parameters and their ``optax.chain(zero_nans(), adamax(lr))`` state, so a
-collapsed chunk resumes from a JAX chunk.
+collapsed chunk resumes from a JAX chunk. :func:`gpssm_state_from_jax` and
+:func:`ut_state_from_jax` carry a GPSSM chain smoother's and a UT
+smoother's state, so a JAX state warm-starts the port's engines and a
+trained JAX chain serves through the port's ``serve.GPSSMFilter``.
 """
 
 import numpy as np
@@ -23,15 +26,18 @@ import torch
 
 from .dists import GammaShapeRate, Gaussian, MvGaussian, MvGaussianNat
 from .infer.batch_vmp import VMPResult
+from .infer.chain_smoother import GPSSMState
 from .infer.fitc import SparseGPParams
 from .infer.minibatch import FastCarry, MinibatchCarry
 from .infer.svgp import SVGPParams
+from .infer.ut_smoother import UTSmootherState
 from .ops.kernels import Kernel
 from .serve import SGPClassifier, SGPRegressor
 
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
            "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
-           "sparse_gp_params_from_jax", "adamax_state_from_jax"]
+           "sparse_gp_params_from_jax", "adamax_state_from_jax", "gpssm_state_from_jax",
+           "ut_state_from_jax"]
 
 
 def _nat(xi, prec):
@@ -152,3 +158,17 @@ def adamax_state_from_jax(opt_state, params_type=None, device="cuda") -> dict:
     tree = t if params_type is None else lambda x: _params(params_type, x, t)
     return {"found_nan": tree(zero_nans.found_nan), "count": t(adam.count),
             "mu": tree(adam.mu), "nu": tree(adam.nu)}
+
+
+def gpssm_state_from_jax(state, device="cuda") -> GPSSMState:
+    """The port's :class:`GPSSMState` from the JAX ``GPSSMState`` (of
+    ``gpssm_vmp``, ``gpssm_vmp_sequential``, ``gpssm_vmp_pit`` or
+    ``gpssm_control_vmp``), with numpy arrays for leaves: field for field,
+    dtypes kept."""
+    return _params(GPSSMState, state, _tensor(device))
+
+
+def ut_state_from_jax(state, device="cuda") -> UTSmootherState:
+    """The port's :class:`UTSmootherState` from the JAX one (numpy leaves),
+    field for field, dtypes kept."""
+    return _params(UTSmootherState, state, _tensor(device))

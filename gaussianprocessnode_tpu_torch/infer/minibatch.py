@@ -123,13 +123,17 @@ class AdaMaxChain:
     eps 1e-8; optax 0.2.6) written out by hand, with an optional
     ``exponential_decay`` of the learning rate over ``transition_steps``
     steps. ``max_norm=None`` drops the clipping link: the chain
-    ``zero_nans`` → ``adamax`` of the VSGP and FITC trainers.
+    ``zero_nans`` → ``adamax`` of the VSGP and FITC trainers; with
+    ``zero_nans=False`` as well it is bare ``optax.adamax`` (the pendulum
+    M-step's, ``utils/optim.py::adamax``), where a NaN gradient reaches the
+    parameters as NaN.
 
     The parameters are one tensor or a tuple of tensors (a NamedTuple such
     as ``SVGPParams``); like optax, the chain works leaf by leaf, with one
     step count and, where it clips, one global norm over all leaves. Its
     state is a dict that maps one to one onto the optax state:
-    ``found_nan`` (zero_nans; one flag per leaf), ``count``, ``mu``, ``nu``
+    ``found_nan`` (zero_nans, where the chain has it; one flag per leaf),
+    ``count``, ``mu``, ``nu``
     (adamax's ScaleByAdamState; ``mu`` and ``nu`` in the parameters'
     structure) and, with a decaying rate, ``lr_count`` (the schedule's
     ScaleByScheduleState). The step count and the learning rate stay on the
@@ -142,6 +146,7 @@ class AdaMaxChain:
     decay_rate: float = 1.0
     transition_steps: int = 1
     max_norm: float | None = _MAX_NORM
+    zero_nans: bool = True
 
     @property
     def decays(self) -> bool:
@@ -151,12 +156,13 @@ class AdaMaxChain:
         leaves = _leaves(params)
         dev = leaves[0].device
         state = {
-            "found_nan": _like(params, [torch.zeros((), dtype=torch.bool, device=dev)
-                                        for _ in leaves]),
             "count": torch.zeros((), dtype=torch.int32, device=dev),
             "mu": _like(params, [torch.zeros_like(p) for p in leaves]),
             "nu": _like(params, [torch.zeros_like(p) for p in leaves]),
         }
+        if self.zero_nans:
+            state["found_nan"] = _like(params, [torch.zeros((), dtype=torch.bool, device=dev)
+                                                for _ in leaves])
         if self.decays:
             state["lr_count"] = torch.zeros((), dtype=torch.int32, device=dev)
         return state
@@ -176,12 +182,12 @@ class AdaMaxChain:
         returns the updates (to add to the parameters), in that
         structure."""
         sdt = config.default_dtype()
-        # zero_nans
-        gs = []
-        for g, found in zip(_leaves(grads), _leaves(state["found_nan"])):
-            nan = torch.isnan(g)
-            found.copy_(torch.any(nan))
-            gs.append(torch.where(nan, torch.zeros_like(g), g))
+        gs = list(_leaves(grads))
+        if self.zero_nans:
+            for i, (g, found) in enumerate(zip(gs, _leaves(state["found_nan"]))):
+                nan = torch.isnan(g)
+                found.copy_(torch.any(nan))
+                gs[i] = torch.where(nan, torch.zeros_like(g), g)
         # clip_by_global_norm
         if self.max_norm is not None:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))

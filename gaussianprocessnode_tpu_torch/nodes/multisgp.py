@@ -14,7 +14,9 @@ As the reference keeps a dense ``Kuu_inverse`` in its meta
 contract against it. The in log-message comes back as a callable that
 takes one point (Din,) or a batch of points (..., Din) at once, where the
 JAX package returns a scalar closure; ``marginal_in`` hands the batch form
-to the cubature.
+to the cubature. ``average_energy_batch`` is the energy of N nodes that
+share q(v) and W, one Gram for all of them, where the GPSSM chain vmaps
+``average_energy``.
 """
 
 import math
@@ -30,7 +32,7 @@ from ..ops.linalg import block_trace_products, cholinv, sum_blocks_weighted, sym
 
 __all__ = ["MultiSGPArgs", "out_message", "in_log_message", "marginal_in",
            "in_message_laplace", "v_message", "v_message_batch", "w_message",
-           "theta_log_message", "average_energy"]
+           "theta_log_message", "average_energy", "average_energy_batch"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -234,3 +236,27 @@ def average_energy(kernel, method, args: MultiSGPArgs, mu_y, Sigma_y, q_in: MvGa
             + 0.5 * torch.trace(W_mean) * (psi0 - torch.sum(args.Kuu_inv * psi2.T))
             - sumdiagV @ psi1
             + 0.5 * torch.sum(psi2 * sumRv_W))
+
+
+def average_energy_batch(kernel, method, args: MultiSGPArgs, mu_y, Sigma_y, q_in: MvGaussian,
+                         mu_v, Sigma_v, W_mean, E_logdet_W):
+    """:func:`average_energy` of N nodes sharing q(v) and W (the GPSSM
+    chain's transitions): mu_y (N, D), Sigma_y (N, D, D), q_in of means (N,
+    Din) and covariances (N, Din, Din). The expected Ψ's of all N input
+    marginals come from one Gram over their N·P cubature points; each
+    node's terms are those of the single-node rule. Returns (N,)."""
+    M = args.Xu.shape[0]
+    D = mu_y.shape[-1]
+    psi0, psi1, Kp, w = psiops.psi_batch_expected_multi(kernel, args.theta, args.Xu, method,
+                                                         q_in.mean, q_in.cov)
+    psi2 = psiops.per_datum_psi2(Kp, w)  # (N, M, M)
+    Rv = Sigma_v + torch.outer(mu_v, mu_v)
+    Ry = Sigma_y + mu_y.unsqueeze(-1) * mu_y.unsqueeze(-2)
+    sumdiagV = (mu_y @ W_mean.T) @ _split_blocks(mu_v, M, D)  # (N, M)
+    sumRv_W = sum_blocks_weighted(Rv, W_mean, D, M)
+    return (0.5 * D * _LOG2PI
+            - 0.5 * E_logdet_W
+            + 0.5 * torch.einsum("de,ned->n", W_mean, Ry)
+            + 0.5 * torch.trace(W_mean) * (psi0 - torch.einsum("mq,nqm->n", args.Kuu_inv, psi2))
+            - torch.einsum("nm,mn->n", sumdiagV, psi1)
+            + 0.5 * torch.einsum("nmq,mq->n", psi2, sumRv_W))

@@ -2,9 +2,10 @@
 
 Counterpart of ``gaussianprocessnode_tpu/ops/linalg.py``: jitter, Cholesky
 factors and the solves and inverses built on them, the dtype-aware jitter,
-the block contractions of the multi-output node (a (DM, DM) matrix as a
-D×D grid of M×M blocks), the matmul-only Newton–Schulz SPD inverse (plain, and as an autograd
-Function with the analytic VJP) and mixed-precision iterative refinement.
+the eigenvalue clamp of symmetric matrices, the block contractions of the
+multi-output node (a (DM, DM) matrix as a D×D grid of M×M blocks), the
+matmul-only Newton–Schulz SPD inverse (plain, and as an autograd Function
+with the analytic VJP) and mixed-precision iterative refinement.
 Every product is a plain ``torch.matmul``, as the JAX package leaves them
 to XLA; ``config`` keeps TF32 off so float32 products are full precision.
 Every guard is branchless (``torch.where`` on tensors), so the fixed-count
@@ -25,7 +26,8 @@ __all__ = ["jittered", "chol_lower", "chol_upper", "tri_solve_lower", "tri_solve
            "chol_solve", "solve_psd", "cholinv", "logdet_from_chol", "jdot",
            "rv_chol_upper", "effective_jitter", "sym", "block_trace_products",
            "sum_blocks_weighted", "sum_diagonal_blocks", "trace_blocks",
-           "gershgorin_lambda_min", "spd_inverse_ns", "spd_inverse", "ir_solve"]
+           "spd_clamp", "gershgorin_lambda_min", "spd_inverse_ns", "spd_inverse",
+           "ir_solve"]
 
 
 def jittered(A: torch.Tensor, jitter: float = JITTER_KUU) -> torch.Tensor:
@@ -81,9 +83,10 @@ def solve_psd(A: torch.Tensor, B: torch.Tensor, jitter: float = 0.0) -> torch.Te
 
 
 def cholinv(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
-    """Inverse through the Cholesky factor (ReactiveMP ``cholinv``)."""
+    """Inverse through the Cholesky factor (ReactiveMP ``cholinv``); A may
+    carry batch dimensions."""
     L = chol_lower(A, jitter)
-    return chol_solve(L, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+    return chol_solve(L, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape))
 
 
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
@@ -114,6 +117,39 @@ def effective_jitter(dtype, base: float = JITTER_KUU) -> float:
 def sym(A: torch.Tensor) -> torch.Tensor:
     """Symmetrize: (A + Aᵀ)/2."""
     return 0.5 * (A + A.mT)
+
+
+def spd_clamp(S: torch.Tensor, floor) -> torch.Tensor:
+    """Eigenvalue-clamp a (batched) symmetric matrix to λ ≥ ``floor`` (a
+    number or a tensor that broadcasts over the batch dimensions): unlike a
+    diagonal lift S + εI, it repairs an arbitrarily indefinite S.
+
+    D = 2 takes the closed-form symmetric eigensystem (S = m·I + r·U with
+    U² = I): clamp the two eigenvalues and rebuild, branchless, as the JAX
+    package computes it. Other D use ``torch.linalg.eigh``."""
+    D = S.shape[-1]
+    floor = torch.as_tensor(floor, dtype=S.dtype, device=S.device)
+    if D == 2:
+        a = S[..., 0, 0]
+        b = 0.5 * (S[..., 0, 1] + S[..., 1, 0])
+        c = S[..., 1, 1]
+        m = 0.5 * (a + c)
+        d = 0.5 * (a - c)
+        r = torch.sqrt(d * d + b * b)
+        lo = torch.maximum(m - r, floor)
+        hi = torch.maximum(m + r, floor)
+        m_c, r_c = 0.5 * (hi + lo), 0.5 * (hi - lo)
+        # U = [[d, b], [b, -d]]/r; at r = 0 the correction r_c·U vanishes too,
+        # so the division is guarded and the isotropic part carries the clamp
+        safe_r = torch.where(r > 0, r, torch.ones_like(r))
+        scale = torch.where(r > 0, r_c / safe_r, torch.zeros_like(r))
+        return torch.stack([
+            torch.stack([m_c + scale * d, scale * b], -1),
+            torch.stack([scale * b, m_c - scale * d], -1),
+        ], -2)
+    w, V = torch.linalg.eigh(sym(S))
+    w = torch.maximum(w, floor.unsqueeze(-1) if floor.dim() else floor)
+    return torch.einsum("...ij,...j,...kj->...ik", V, w, V)
 
 
 def block_trace_products(Rv: torch.Tensor, S: torch.Tensor, D: int, M: int) -> torch.Tensor:

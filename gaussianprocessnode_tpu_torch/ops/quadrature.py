@@ -16,7 +16,10 @@ Conventions:
   points ``(..., P, d)`` and weights ``(P,)`` (GenUT: ``(..., P)``);
 - every callable passed in (``f``, ``logf``, ``g``) takes the whole batch of
   points at once, as its first axis, and returns one value per point along
-  that axis, where the JAX package vmaps a scalar function over the points.
+  that axis, where the JAX package vmaps a scalar function over the points;
+  ``moment_match_multi_batch`` matches B products at once, where the JAX
+  package vmaps ``moment_match_multi``, and its ``logf`` takes the (B, P, d)
+  points of all of them.
   The joint forms pass ``g`` one argument per marginal, each with the points
   along its first axis.
 
@@ -59,6 +62,7 @@ __all__ = [
     "moment_match_uni",
     "moment_match_uni_logz",
     "moment_match_multi",
+    "moment_match_multi_batch",
 ]
 
 
@@ -356,6 +360,34 @@ def moment_match_multi(logf, m, V, method=SphericalRadial()):
         & (torch.amin(torch.diagonal(L)) > torch.sqrt(floor) * 0.5)
     )
     return torch.where(good, mt, m), torch.where(good, Vt, V)
+
+
+def moment_match_multi_batch(logf, m, V, method=SphericalRadial()):
+    """:func:`moment_match_multi` for B products at once: m (B, d), V (B, d,
+    d), ``logf`` takes the (B, P, d) points of all rows (one Gram for all of
+    them) and returns (B, P). Each row keeps its own max, floor, Cholesky
+    test and fallback, as the JAX package's ``vmap`` of the single-product
+    rule does."""
+    pts, w, w_cov = points_weights_cov_multi(method, m, V)  # weights (P,) or (B, P)
+    lf = logf(pts)
+    f = torch.exp(lf - torch.amax(lf, dim=-1, keepdim=True))
+    wf = w * f
+    Z = torch.sum(wf, dim=-1)
+    mt = torch.einsum("bp,bpd->bd", wf, pts) / Z.unsqueeze(-1)
+    diff = pts - mt.unsqueeze(-2)
+    Vt = torch.einsum("bp,bpi,bpj->bij", w_cov * f, diff, diff) / Z[:, None, None]
+    d = m.shape[-1]
+    floor = 1e-8 * torch.diagonal(V, dim1=-2, dim2=-1).sum(-1) / d
+    Vt = Vt + floor[:, None, None] * torch.eye(d, dtype=V.dtype, device=V.device)
+    L = chol_lower(Vt)
+    good = (
+        torch.all(torch.isfinite(mt), dim=-1)
+        & torch.all(torch.isfinite(Vt), dim=(-2, -1))
+        & torch.all(torch.isfinite(L), dim=(-2, -1))
+        & (torch.amin(torch.diagonal(L, dim1=-2, dim2=-1), dim=-1) > torch.sqrt(floor) * 0.5)
+    )
+    return (torch.where(good.unsqueeze(-1), mt, m),
+            torch.where(good[:, None, None], Vt, V))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Serving layer: predictor handles for trained sparse-GP models.
 
 Counterpart of ``gaussianprocessnode_tpu/serve.py``: the regression and the
-probit classification handles. The trained state is packaged once (μ_v
+probit classification handles, and the GPSSM's streaming filter. The trained state is packaged once (μ_v
 recovered from the trainer's natural parameters at build time,
 matmul-only) and each request batch costs one SE Gram of K(Xu, x*) plus one
 mat-vec, and for a classifier the Φ epilogue. With
 ``Kernel(use_kernel=True)`` the Gram is the hand-written CUDA kernel of
-``ops/se_gram.py``.
+``ops/se_gram.py``. The GPSSM filter (``GPSSMFilter``) costs one Gram of
+the inducing inputs against the 2·D cubature points per observation.
 """
 
 import time
@@ -17,10 +18,11 @@ import torch
 
 from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from .infer.batch_vmp import predict_out, predict_probit
+from .infer.chain_smoother import filter_frozen, filter_stream
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
 from .utils.profiling import synchronize
 
-__all__ = ["SGPRegressor", "SGPClassifier", "serve_fused", "throughput",
+__all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "serve_fused", "throughput",
            "throughput_fused"]
 
 
@@ -110,6 +112,44 @@ class SGPClassifier:
 
     def __call__(self, X_test, threshold: float = 0.5):
         return (self.probabilities(X_test) >= threshold).to(self.Xu.dtype)
+
+
+@dataclass(frozen=True)
+class GPSSMFilter:
+    """Frozen streaming handle for a trained GPSSM: 1-step-ahead state
+    prediction (PredictState, the MultiSGP :out rule from the previous
+    filtered marginal; UpdateState, the Gaussian product with the
+    observation message; Pendulum_Wishart_2d.ipynb cells 3, 36). The state
+    recovery (the (M·D)² q(v) solve, W̄ and its inverse) runs once, in
+    ``from_state``; each call filters one window on the handle's device and
+    returns the carry, so that consecutive windows chain exactly:
+    handle(y[:k]) then handle(y[k:], carry) equals handle(y)."""
+
+    kernel: object
+    theta: torch.Tensor
+    Xu: torch.Tensor
+    frozen: object  # infer.chain_smoother.GPSSMFilterFrozen
+    start: tuple  # (mean, cov): the trained smoother's last marginal
+    dtype: torch.dtype
+
+    @classmethod
+    def from_state(cls, kernel, theta, Xu, state, P):
+        """Build from a trained ``GPSSMState`` and the observation
+        covariance P, on the state's device, in P's dtype."""
+        P = torch.as_tensor(P, device=state.x_means.device)
+        with torch.no_grad():
+            frozen = filter_frozen(state, P)
+        return cls(kernel, theta, Xu, frozen, (state.x_means[-1], state.x_covs[-1]), P.dtype)
+
+    def __call__(self, ys, carry=None):
+        """Filter one window. Returns (pred_means, pred_covs, carry); pass
+        the carry back to continue the stream (without it the window starts
+        from the trained smoother's last marginal)."""
+        if carry is None:
+            carry = self.start
+        ys = torch.as_tensor(ys, dtype=self.dtype, device=self.Xu.device)
+        with torch.no_grad():
+            return filter_stream(self.kernel, self.theta, self.Xu, self.frozen, ys, carry)
 
 
 def serve_fused(predictor, X_batches):

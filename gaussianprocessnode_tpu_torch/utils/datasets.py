@@ -1,5 +1,6 @@
 """Dataset loaders and synthetic-data generators (L7 layer): the toy
-workloads, kin40k and banana, and the pendulum's inducing grid.
+workloads, kin40k and banana, and the pendulum GPSSM's data and inducing
+grid.
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -14,7 +15,7 @@ import numpy as np
 
 __all__ = ["REFERENCE_ROOT", "Dataset", "toy_sinc", "toy_classification",
            "toy_sinc_reference", "toy_classification_reference", "split2batch", "kin40k",
-           "kin40k_synthetic", "banana", "banana_synthetic", "pendulum_inducing"]
+           "kin40k_synthetic", "banana", "banana_synthetic", "pendulum", "pendulum_inducing"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -186,6 +187,35 @@ def banana_synthetic(seed: int = 1, n_train: int = 4000, n_test: int = 1300):
     mu, sd = x[:n_train].mean(axis=0), x[:n_train].std(axis=0)
     x = (x - mu) / sd
     return Dataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])
+
+
+def pendulum(n: int = 700, max_time: float = 7.0, qc: float = 0.01, obs_var: float = 0.1,
+             seed: int = 69):
+    """Pendulum GPSSM data (reference: Pendulum_Wishart_2d.ipynb cells 4-5):
+
+        x_{t+1} = [x1 + x2·Δt, x2 − 9.81·sin(x1)·Δt] + N(0, Q),  y = x + N(0, P),
+
+    drawn by the same numpy recurrence from ``default_rng(seed)`` as the JAX
+    package's ``pendulum``, so the arrays are equal bit for bit. Seed 69 is
+    its difficulty-matched draw (the reference's Julia seed cannot be
+    reproduced). Returns (states (n, 2), observations (n, 2), Q, P, Δt)."""
+    rng = np.random.default_rng(seed)
+    dt = max_time / (n - 1)
+    Q = np.array([[qc * dt**3 / 3, qc * dt**2 / 2], [qc * dt**2 / 2, qc * dt]])
+    P = obs_var * np.eye(2)
+    Lq = np.linalg.cholesky(Q)
+    Lp = np.linalg.cholesky(P)
+    x_prev = np.array([1.5, 0.0])
+    xs, ys = [], []
+    for _ in range(n):
+        x = np.array(
+            [x_prev[0] + x_prev[1] * dt, x_prev[1] - 9.81 * np.sin(x_prev[0]) * dt]
+        ) + Lq @ rng.standard_normal(2)
+        y = x + Lp @ rng.standard_normal(2)
+        xs.append(x)
+        ys.append(y)
+        x_prev = x
+    return np.asarray(xs), np.asarray(ys), Q, P, dt
 
 
 def pendulum_inducing():

@@ -2,11 +2,11 @@
 
 Counterpart of ``gaussianprocessnode_tpu/utils/optim.py``:
 
-- ``adamax``: the AdaMax chain the trainers run (``infer/minibatch.py::
-  AdaMaxChain``) at Flux's defaults (η = 0.002, β = (0.9, 0.999)). Its
-  ``zero_nans`` and ``clip_by_global_norm(1e8)`` links leave a finite
-  gradient of norm below 1e8 as it is, so on such gradients it is
-  ``optax.adamax``;
+- ``adamax``: bare ``optax.adamax`` at Flux's defaults (η = 0.002, β =
+  (0.9, 0.999)), as ``infer/minibatch.py::AdaMaxChain`` without its
+  ``zero_nans`` and clipping links: a NaN gradient reaches the parameters
+  as NaN, as in JAX. An optional ``exponential_decay`` of the rate is the
+  pendulum M-step's schedule;
 - ``lbfgs_minimize``: scipy's L-BFGS-B on the host over a torch
   value-and-grad, the reference's Optim.LBFGS run to convergence;
 - ``nelder_mead``: scipy's Nelder–Mead on the host over a torch objective,
@@ -23,9 +23,15 @@ from ..infer.minibatch import AdaMaxChain
 __all__ = ["adamax", "lbfgs_minimize", "nelder_mead"]
 
 
-def adamax(learning_rate: float = 0.002) -> AdaMaxChain:
-    """Flux.AdaMax defaults: η = 0.002, β = (0.9, 0.999)."""
-    return AdaMaxChain(learning_rate=learning_rate)
+def adamax(learning_rate: float = 0.002, decay_rate: float = 1.0,
+           transition_steps: int = 1) -> AdaMaxChain:
+    """``optax.adamax(learning_rate, b1=0.9, b2=0.999)`` (Flux.AdaMax's
+    defaults), its rate an ``optax.exponential_decay(learning_rate,
+    transition_steps, decay_rate)`` where ``decay_rate`` ≠ 1. Its state
+    maps onto optax's ScaleByAdamState (``count``, ``mu``, ``nu``), plus
+    ScaleByScheduleState (``lr_count``) when the rate decays."""
+    return AdaMaxChain(learning_rate=learning_rate, decay_rate=decay_rate,
+                       transition_steps=transition_steps, max_norm=None, zero_nans=False)
 
 
 def lbfgs_minimize(value_and_grad_fn, x0, args=(), maxiter: int = 200):

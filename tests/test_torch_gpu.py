@@ -1,6 +1,7 @@
 """The port's CUDA kernel, its route, and the serving and training paths
 (kin40k regression, banana classification, the toy workloads, the VSGP
-collapsed bound and the pendulum objective's Grams) on a CUDA card.
+collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
+its streaming filter and the associative scan) on a CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -561,3 +562,92 @@ def test_collapsed_step_through_the_kernel_matches_the_plain_route_on_card():
     assert float(abs(vk - vp)) <= 1e-4 * float(abs(vp))
     assert float(torch.linalg.norm(tk - tp) / torch.linalg.norm(tp)) <= 1e-4
     assert not torch.equal(tk, theta0)
+
+
+def _gpssm_setup():
+    """The pendulum runner's setup in float32 on the card, and a state after
+    3 cold Jacobi sweeps through the plain Gram at θ0."""
+    from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    s = runner.setup("cuda", torch.float32)
+    state, _ = runner.vmp(dict(s, kernel=Kernel("se", "softplus")), s["theta0"], 3)
+    return runner, s, state
+
+
+@pytest.mark.gpu
+def test_gpssm_jacobi_sweep_through_the_kernel_at_full_width_on_card():
+    """One Jacobi sweep (T = 300, M = 48 on the pendulum grid, float32) from
+    one state, through the kernel and through the plain Gram: 3 + 1 + 2
+    launches (the sweep's three Grams, Kuu, the free energy's two), the
+    x-means within 0.1 and the free energy within 15 % (the JAX package's own
+    float32 limits: on this grid each refinement's log-density carries ~1
+    nat of float32 rounding, chip_smoke.py phase 12)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    runner, s, state = _gpssm_setup()
+    out = {}
+    for use_kernel in (True, False):
+        before = sg.se_gram_cuda.launches
+        st, fe = runner.vmp(dict(s, kernel=Kernel("se", "softplus", use_kernel=use_kernel)),
+                            s["theta0"], 1, init_state=state)
+        assert sg.se_gram_cuda.launches == before + (6 if use_kernel else 0)
+        out[use_kernel] = (st, fe)
+    (sk, fk), (sp, fp) = out[True], out[False]
+    assert all(bool(torch.isfinite(t).all()) for t in sk)
+    assert float((sk.x_means - sp.x_means).abs().max()) <= 0.1
+    assert float(abs(fk - fp)) <= 0.15 * float(abs(fp))
+
+
+@pytest.mark.gpu
+def test_gpssm_filter_windows_chain_on_card():
+    """serve.GPSSMFilter on the card: two chained windows equal one window
+    bit for bit, one launch per filtered step, and the predictions within
+    1e-4 of the plain Gram's (no Kuu⁻¹ in the filter: the Gram's rounding
+    alone)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.serve import GPSSMFilter
+
+    _, s, state = _gpssm_setup()
+    yt = s["y_test"][:60]
+    hk = GPSSMFilter.from_state(Kernel("se", "softplus", use_kernel=True), s["theta0"], s["Xu"],
+                                state, s["P"])
+    before = sg.se_gram_cuda.launches
+    m_one, _, end = hk(yt)
+    assert sg.se_gram_cuda.launches == before + 60
+    m1, _, mid = hk(yt[:25])
+    m2, _, end2 = hk(yt[25:], mid)
+    assert torch.equal(torch.cat([m1, m2]), m_one) and torch.equal(end[1], end2[1])
+    hp = GPSSMFilter.from_state(Kernel("se", "softplus"), s["theta0"], s["Xu"], state, s["P"])
+    m_p, _, _ = hp(yt)
+    assert float((m_one - m_p).abs().max()) <= 1e-4 * float(m_p.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_associative_scan_on_card_matches_a_sequential_fold(reverse):
+    """ops/scan.py on CUDA tensors, T + 1 = 301 affine elements (3×3), float64:
+    within 1e-11 of a sequential fold on the host."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops.scan import associative_scan
+
+    rng = np.random.default_rng(301)
+    A = 0.6 * rng.standard_normal((301, 3, 3))
+    c = rng.standard_normal((301, 3))
+
+    def fn(a, b):
+        return b[0] @ a[0], (b[0] @ a[1][..., None])[..., 0] + b[1]
+
+    out = associative_scan(fn, (torch.as_tensor(A, device="cuda"),
+                                torch.as_tensor(c, device="cuda")), reverse=reverse)
+    acc, fold = None, []
+    for k in (range(300, -1, -1) if reverse else range(301)):
+        acc = (A[k], c[k]) if acc is None else fn(acc, (A[k], c[k]))
+        fold.append(acc)
+    fold = fold[::-1] if reverse else fold
+    for i in range(2):
+        want = np.stack([f[i] for f in fold])
+        got = out[i].cpu().numpy()
+        assert np.max(np.abs(got - want)) <= 1e-11 * np.max(np.abs(want))

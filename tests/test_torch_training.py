@@ -431,6 +431,44 @@ def test_adamax_matches_optax_adamax():
     assert opt.learning_rate == 0.002
 
 
+@pytest.mark.parametrize("decay", [1.0, 0.2])
+def test_adamax_is_bare_optax_adamax_on_a_nan_gradient(decay):
+    """No zero_nans, no clipping: the NaN reaches θ and the state as NaN in
+    both packages, at the same positions; the finite entries and the state
+    (ScaleByAdamState, plus ScaleByScheduleState with a decaying rate) agree
+    to 1e-12. The trainers' chains keep their zero_nans (checked last)."""
+    lr = 0.01
+    if decay == 1.0:
+        opt, jopt = toptim.adamax(lr), joptim.adamax(lr)
+    else:
+        opt = toptim.adamax(lr, decay_rate=decay, transition_steps=10)
+        jopt = optax.adamax(optax.exponential_decay(lr, transition_steps=10, decay_rate=decay))
+    x = np.array([0.1, 0.2, 0.3])
+    tx = torch.as_tensor(x)
+    state, jstate, jx = opt.init(tx), jopt.init(jnp.asarray(x)), jnp.asarray(x)
+    assert "found_nan" not in state
+    for g in (np.array([np.nan, 1.0, -1.0]), np.array([0.5, -2.0, 3.0])):
+        tx = tx + opt.update_(torch.as_tensor(g), state)
+        u, jstate = jopt.update(jnp.asarray(g), jstate)
+        jx = optax.apply_updates(jx, u)
+    jadam = jstate[0]  # (ScaleByAdamState, EmptyState or ScaleByScheduleState)
+    pairs = [(tx, jx), (state["mu"], jadam.mu), (state["nu"], jadam.nu)]
+    for t, j in pairs:
+        t, j = _np(t), np.asarray(j)
+        assert np.array_equal(np.isnan(t), np.isnan(j)) and np.isnan(t[0])
+        np.testing.assert_allclose(t[1:], j[1:], rtol=1e-12)
+    assert int(state["count"]) == int(jadam.count) == 2
+    if decay != 1.0:
+        assert int(state["lr_count"]) == int(jstate[-1].count) == 2
+    # the trainers' chain still zeroes the NaN
+    from gaussianprocessnode_tpu_torch.infer.minibatch import default_optimizer
+
+    chain = default_optimizer(lr)
+    cs = chain.init(torch.as_tensor(x))
+    upd = chain.update_(torch.as_tensor([np.nan, 1.0, -1.0]), cs)
+    assert bool(torch.isfinite(upd).all()) and float(upd[0]) == 0.0 and bool(cs["found_nan"])
+
+
 def _rosen_np(x):
     return float(np.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1 - x[:-1]) ** 2))
 
