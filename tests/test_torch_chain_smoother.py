@@ -192,9 +192,9 @@ def test_average_energy_batch_matches_vmapped_rule():
     Kuu_inv = jcholinv(JK.kuu(ja[1], ja[2]), jitter=1e-8)
     jqw = JWF(jnp.asarray(104.0), jnp.asarray(W_rate))
     jargs = jm.MultiSGPArgs(ja[1], ja[2], Kuu_inv)
-    je = jax.vmap(lambda a, b, c, d: jm.average_energy(
+    je = jax.jit(jax.vmap(lambda a, b, c, d: jm.average_energy(
         JK, jq.SphericalRadial(), jargs, a, b, JMv(c, d), jnp.asarray(mu_v), jnp.asarray(Sv),
-        jwmean(jqw), jwlogdet(jqw)))(*map(jnp.asarray, (mu_y, S_y, m_in, V_in)))
+        jwmean(jqw), jwlogdet(jqw))))(*map(jnp.asarray, (mu_y, S_y, m_in, V_in)))
     tqw = WishartFast(torch.tensor(104.0, dtype=torch.float64), torch.as_tensor(W_rate))
     targs = tm.MultiSGPArgs(ta[1], ta[2], torch.as_tensor(np.array(Kuu_inv)))
     T = torch.as_tensor
@@ -215,20 +215,21 @@ def test_chain_cores_match(jacobi64):
     ts = convert.gpssm_state_from_jax(jax.tree.map(np.asarray, js), device="cpu")
     Kj = jc._kuu_inv_f64(JK, ja[1], ja[2], jnp.float64)
     Kt = tc._kuu_inv_f64(TK, ta[1], ta[2], torch.float64)
-    W = np.asarray(js.W_df * jcholinv(js.W_rate))
+    W = np.array(js.W_df * jcholinv(js.W_rate))
     T_ = ja[3].shape[0]
     sr_j, sr_t = jq.SphericalRadial(), tq.SphericalRadial()
-    jout = jc.chain_qv_qw_updates(JK, ja[1], ja[2], sr_j, Kj, ja[7], jcholinv(ja[9]), 100.0, T_,
-                                  js.x_means[:-1], js.x_covs[:-1], js.x_means[1:],
-                                  js.x_covs[1:], jnp.asarray(W), jnp.float64)
+    jout = jax.jit(lambda S0i, m, V, W_: jc.chain_qv_qw_updates(
+        JK, ja[1], ja[2], sr_j, Kj, ja[7], S0i, 100.0, T_, m[:-1], V[:-1], m[1:], V[1:], W_,
+        jnp.float64))(jcholinv(ja[9]), js.x_means, js.x_covs, jnp.asarray(W))
     tout = tc.chain_qv_qw_updates(TK, ta[1], ta[2], sr_t, Kt, ta[7], cholinv(ta[9]), 100.0, T_,
                                   ts.x_means[:-1], ts.x_covs[:-1], ts.x_means[1:],
                                   ts.x_covs[1:], torch.as_tensor(W), torch.float64)
     for a, b in zip(tout, jout):
         close(a, b)
-    jfe = jc.chain_fe_terms(JK, ja[1], ja[2], Kj, ja[3], ja[4], ja[5], ja[6], ja[7], 100.0,
-                            ja[9], js.x_means[0], js.x_covs[0], js.x_means[1:], js.x_covs[1:],
-                            js.x_means[:-1], js.x_covs[:-1], *js[2:], sr_j)
+    jfe = jax.jit(lambda st: jc.chain_fe_terms(
+        JK, ja[1], ja[2], Kj, ja[3], ja[4], ja[5], ja[6], ja[7], 100.0, ja[9], st.x_means[0],
+        st.x_covs[0], st.x_means[1:], st.x_covs[1:], st.x_means[:-1], st.x_covs[:-1], *st[2:],
+        sr_j))(js)
     tfe = tc.chain_fe_terms(TK, ta[1], ta[2], Kt, ta[3], ta[4], ta[5], ta[6], ta[7], 100.0,
                             ta[9], ts.x_means[0], ts.x_covs[0], ts.x_means[1:], ts.x_covs[1:],
                             ts.x_means[:-1], ts.x_covs[:-1], *ts[2:], sr_t)
@@ -262,7 +263,7 @@ def test_warm_start_from_a_jax_state(jacobi64):
     """convert.gpssm_state_from_jax: the port continues a JAX run."""
     ja, ta, js, _ = jacobi64
     ts = convert.gpssm_state_from_jax(jax.tree.map(np.asarray, js), device="cpu")
-    assert all(torch.equal(getattr(ts, f), torch.as_tensor(np.asarray(getattr(js, f))))
+    assert all(torch.equal(getattr(ts, f), torch.as_tensor(np.array(getattr(js, f))))
                for f in js._fields)
     js2, jfe2 = jc.gpssm_vmp(*ja, n_iters=3, init_state=js)
     ts2, tfe2 = tc.gpssm_vmp(*ta, n_iters=3, init_state=ts)

@@ -58,11 +58,18 @@ def _smse(truth, est):
 
 _vmp = jax.jit(jc.gpssm_vmp, static_argnums=0, static_argnames=("n_iters", "compute_fe"))
 _pit = jax.jit(jp.gpssm_vmp_pit, static_argnums=0, static_argnames=("n_pit", "n_polish"))
+_DT = pendulum()[4]
+
+
+def _g(x):
+    """The pendulum's known dynamics, one function for every mode (the
+    jitted UT smoother then compiles once)."""
+    return jnp.stack([x[0] + x[1] * _DT, x[1] - 9.81 * jnp.sin(x[0]) * _DT])
 
 
 def jax_run(use_lbfgs, steps, pit=False):
     """The JAX runner's run(), composed of the JAX package's functions."""
-    x_state, y_obs, _, P, dt = pendulum()
+    x_state, y_obs, _, P, _ = pendulum()
     y, yt = jnp.asarray(y_obs[:300]), jnp.asarray(y_obs[300:])
     Xu = jnp.asarray(pendulum_inducing())
     M, D = 48, 2
@@ -93,11 +100,7 @@ def jax_run(use_lbfgs, steps, pit=False):
     else:
         state, _ = _vmp(JK, theta, Xu, y, *prior, n_iters=150)
     pm, _ = jc.one_step_ahead(JK, theta, Xu, state, yt, prior[0])
-
-    def g(x):
-        return jnp.stack([x[0] + x[1] * dt, x[1] - 9.81 * jnp.sin(x[0]) * dt])
-
-    ut = jut(g, y, *prior[:3], 100.0, jnp.eye(2), n_iters=150)
+    ut = jut(_g, y, *prior[:3], 100.0, jnp.eye(2), n_iters=150)
     return dict(theta=np.asarray(theta), fe_trace=fes,
                 smse_smooth=_smse(x_state[:300], np.asarray(state.x_means[1:])),
                 smse_predict=_smse(x_state[300:], np.asarray(pm)),
