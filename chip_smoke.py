@@ -36,7 +36,13 @@ full width (T = 300 / 400, M = 48, D = 2): the runner itself for 2
 epochs, then its epochs, the Jacobi, Gauss-Seidel, parallel-in-time and
 controlled smoothers and the streaming filter through the kernel and
 through the plain Gram, held to each other, with float64 sweeps and the UT
-smoother held card against host. It prints
+smoother held card against host; and runs the GPLVM at the runner's
+width (N = 200, D = 12, Din = 2, M = 30, synthetic oil-flow data from
+--seed): 2 epochs of ``fit_gplvm_grad`` in float64 on the card and on the
+host, held to each other, the embedding of the training rows (a fixed
+point) and of 40 held-out rows, the float32 Ψ-statistics and one sweep
+through the kernel against the plain Gram, and each model front-end class
+against its direct call. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -45,7 +51,8 @@ smoother held card against host. It prints
   the test predictions 500×1300×2; classifier serving 500×30000×2; the toy
   workloads' Kuu, Kux, test rows and expected-Ψ point Grams; the pendulum
   objective's 48×1200×2 and 48×48×2; the GPSSM chain's 48×1200×2, its
-  filter step's 48×4×2 and the controlled chain's Ψ Gram 48×1800×3): the
+  filter step's 48×4×2 and the controlled chain's Ψ Gram 48×1800×3; the
+  GPLVM's 30×800×2 and 30×30×2): the
   kernel's device time (its launches replayed from a CUDA graph), its time
   in a Python loop of launches between CUDA events (host cost included),
   the time of ``fill_`` on an output of the same size (the store ceiling
@@ -129,7 +136,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/12 device: start")
+    say("phase 1/13 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -143,12 +150,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/12 device: done")
+    say("phase 1/13 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/12 build: start")
+    say("phase 2/13 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -158,7 +165,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/12 build: done")
+    say("phase 2/13 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -189,7 +196,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/12 kernel vs plain: start")
+    say("phase 3/13 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -265,12 +272,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/12 kernel vs plain: done")
+    say("phase 3/13 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/12 serving: start")
+    say("phase 4/13 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -341,7 +348,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/12 serving: done")
+    say("phase 4/13 serving: done")
     return handle, X, launches
 
 
@@ -417,7 +424,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/12 times: start")
+    say("phase 5/13 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -435,7 +442,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/12 times: done")
+    say("phase 5/13 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -510,7 +517,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/12 training: start")
+    say("phase 6/13 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -613,7 +620,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/12 training: done")
+    say("phase 6/13 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -682,7 +689,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/12 banana training: start")
+    say("phase 7/13 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -851,7 +858,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/12 banana training: done")
+    say("phase 7/13 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -881,7 +888,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/12 classifier serving: start")
+    say("phase 8/13 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -982,7 +989,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/12 classifier serving: done")
+    say("phase 8/13 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1047,7 +1054,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/12 toy workloads: start")
+    say("phase 9/13 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1188,7 +1195,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/12 toy workloads: done")
+    say("phase 9/13 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1245,7 +1252,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/12 VSGP and FITC baselines: start")
+    say("phase 10/13 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1444,7 +1451,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/12 VSGP and FITC baselines: done")
+    say("phase 10/13 VSGP and FITC baselines: done")
     return out
 
 
@@ -1506,7 +1513,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/12 MultiSGP node and M-step objective: start")
+    say("phase 11/13 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1639,7 +1646,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/12 MultiSGP node and M-step objective: done")
+    say("phase 11/13 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -1938,7 +1945,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/12 GPSSM family: start")
+    say("phase 12/13 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2089,7 +2096,338 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/12 GPSSM family: done")
+    say("phase 12/13 GPSSM family: done")
+    return out
+
+# the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
+# 12-D synthetic oil-flow data (40 more held out for the embedding), Din =
+# 2, M = 30 inducing inputs; 2 epochs of fit_gplvm_grad (6 sweeps of 20
+# Laplace L-BFGS steps each, 8 M-step L-BFGS steps), float64
+GPLVM_N, GPLVM_HELD, GPLVM_M, GPLVM_DIN = 200, 40, 30, 2
+GPLVM_EPOCHS, GPLVM_SWEEPS = 2, 6
+GPLVM_SHAPES = ((GPLVM_M, GPLVM_N * 2 * GPLVM_DIN, "GPLVM Psi point Gram"),
+                (GPLVM_M, GPLVM_M, "GPLVM Kuu"))
+# float64 card against host, to limits from a measured twin
+# (scripts/gplvm_rounding_twin.py: the host's fit with every Gram entry
+# moved by ±1 float64 ulp against the plain one, seeds 0-3 on the CPU).
+# Rounding reaches the fit through θ: one ulp of the Gram moved θ by
+# 3e-10-9.9e-8 relative, the FE trace by ≤ 2.6e-7 and the x-means by
+# 5e-8-2.8e-5, smoothly over all rows; the limits are ~10x those (card
+# and host differ in every GEMM and factorization, not in the Gram alone).
+# A row counts as moved where its x-mean differs by more than
+# GPLVM_ROW_TOL, another mode of its multimodal Laplace objective: none
+# may. The linesearch choices that steer a row between modes compare
+# values far apart early in its L-BFGS, and those at the rounding floor
+# move it by rounding only; the twin moved no row in 800 row fits.
+GPLVM_ROW_TOL = 1e-3
+GPLVM_F64_LIMITS = {"theta": 1e-6, "fe_trace": 2e-6, "x_means_abs": 3e-4, "rows_moved": 0}
+# embedding the training rows from the latents of GPLVM_POLISH_SWEEPS more
+# sweeps at the trained θ, one pass: those latents are the map's fixed
+# points to the convergence of its 20-step L-BFGS, whose slowest rows end
+# 1e-8-6e-8 from their mode (the host, seeds 0-1, after 2 and 6 sweeps;
+# the JAX package measured ≤ 4e-10 on 3PhData); a wrong q(v) or θ moves
+# rows by ≥ 1e-3
+GPLVM_POLISH_SWEEPS = 2
+GPLVM_FIXED_POINT = 1e-6
+# launches of one float32 gplvm_vmp sweep with its free energy: the prior's
+# Kuu, the sweep's point Gram and the x-update's Kuu, the free energy's Kuu
+# and point Gram
+GPLVM_F32_SWEEP_LAUNCHES = 5
+
+
+def gplvm_setup(seed, device, dtype=torch.float64):
+    """The runner's inputs at full width on ``device``: synthetic oil-flow
+    rows from ``seed`` (the first 200 to train, 40 held out), the priors at
+    the 2-D PCA projection of all of them, Xu from the training rows'."""
+    from gaussianprocessnode_tpu_torch.experiments import gplvm as runner
+    from gaussianprocessnode_tpu_torch.utils.datasets import oil_flow_synthetic
+
+    Y_all, labels = oil_flow_synthetic(seed, GPLVM_N + GPLVM_HELD)
+    mean_X = runner.pca_2d(Y_all)
+    pos = np.random.default_rng(86).permutation(GPLVM_N)[:GPLVM_M]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    n = GPLVM_N
+    return dict(theta0=t(runner.THETA0), Xu=t(mean_X[:n][pos]), Y=t(Y_all[:n]),
+                Xm=t(mean_X[:n]), Y_held=t(Y_all[n:]), Xm_held=t(mean_X[n:]), labels=labels)
+
+
+def gplvm_fit(seed, device, kernel=None, counts=None):
+    """``fit_gplvm_grad`` for GPLVM_EPOCHS epochs on ``device`` (the plain
+    float64 kernel where None). Returns (setup, θ, state, FE trace)."""
+    from gaussianprocessnode_tpu_torch.infer.gplvm import fit_gplvm_grad
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    s = gplvm_setup(seed, device)
+    kernel = kernel or Kernel("se", "softplus")
+    theta, state, fe = fit_gplvm_grad(kernel, s["theta0"], s["Xu"], s["Y"], s["Xm"],
+                                      epochs=GPLVM_EPOCHS, n_iters=GPLVM_SWEEPS, counts=counts)
+    return s, theta, state, fe
+
+
+def gplvm_diff(a, b) -> dict:
+    """Two ``gplvm_fit`` results: θ and the FE trace relative, the number
+    of rows whose x-means moved by more than GPLVM_ROW_TOL, the largest
+    x-mean difference of the others and of all."""
+    _, ta, sa, fa = a
+    _, tb, sb, fb = b
+    dx = (sa.x_means.double().cpu() - sb.x_means.double().cpu()).abs().amax(dim=-1)
+    moved = dx > GPLVM_ROW_TOL
+    return {"theta": _relmax(ta, tb), "fe_trace": _relmax(fa, fb),
+            "x_means_abs": float(dx[~moved].max()) if bool((~moved).any()) else 0.0,
+            "rows_moved": int(moved.sum()), "x_means_abs_all": float(dx.max())}
+
+
+def _gplvm_f32(s, theta, state, kern, plain):
+    """The float32 paths through the kernel against the plain Gram: the
+    Ψ-statistics of the trained marginals (30×800×2) and one cold
+    ``gplvm_vmp`` sweep with its free energy. Returns (differences, their
+    limits, the sweep's launches, per route its free energy and the
+    smallest eigenvalue of B with the x-means difference, whether the
+    kernel route's state is finite, the cubature points)."""
+    from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_vmp
+    from gaussianprocessnode_tpu_torch.ops import psi as psiops
+    from gaussianprocessnode_tpu_torch.ops import quadrature as quad
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.utils.profiling import synchronize
+
+    f32 = lambda t: t.to(torch.float32)  # noqa: E731
+    th, Xu, Y, Xm = f32(theta), f32(s["Xu"]), f32(s["Y"]), f32(s["Xm"])
+    m, V = f32(state.x_means), f32(state.x_covs)
+    sr = quad.SphericalRadial()
+    N, P = m.shape[0], 2 * GPLVM_DIN
+    ones = torch.ones(N, device=th.device)
+    psi = {}
+    for name, k in (("kernel", kern), ("plain", plain)):
+        p0, p1, Kp, w = psiops.psi_batch_expected_multi(k, th, Xu, sr, m, V)
+        psi[name] = (p0, p1, psiops.sum_weighted_psi2(Kp, w, ones))
+    var, ls = plain.params(th)
+    pts, _ = quad.points_weights_multi(sr, m, V)
+    tol = gram_tolerance(Xu / ls, pts.reshape(-1, GPLVM_DIN) / ls, var)
+    v = float(var)
+    lim_psi1 = tol + 2 * P * EPS32 * v
+    lim_psi2 = N * (2 * v * tol + tol * tol) + 2 * N * P * EPS32 * N * v * v
+    w_val = 100.0  # the runner's W = 100·I
+    ysum = float(Y.abs().sum(dim=0).max())
+    limits = {"psi0": 0.0, "psi1": lim_psi1, "psi2_sum": lim_psi2,
+              "xi_v": w_val * ysum * (lim_psi1 + 2 * N * EPS32 * v),
+              "prec_v": w_val * lim_psi2 + 2 * EPS32 * w_val * float(psi["plain"][2].abs().max())}
+    d = {k: float((a.double() - b.double()).abs().max())
+         for k, a, b in zip(("psi0", "psi1", "psi2_sum"), psi["kernel"], psi["plain"])}
+    sweeps = {}
+    for name, k in (("kernel", kern), ("plain", plain)):
+        synchronize(th.device)
+        se_gram_cuda.launches = 0  # the f32 GPLVM path: counts at 0 just before
+        sweeps[name] = gplvm_vmp(k, th, Xu, Y, Xm, n_iters=1)
+        synchronize(th.device)
+        if name == "kernel":
+            launches = se_gram_cuda.launches
+    (sk, fk), (sp, fp) = sweeps["kernel"], sweeps["plain"]
+    d["xi_v"] = float((sk.xi_v - sp.xi_v).abs().max())
+    d["prec_v"] = float((sk.prec_v - sp.prec_v).abs().max())
+    # B = Kuu + w·ΣΨ2, whose factor gives the q(v) moments: its smallest
+    # eigenvalue, and the free energy, per route
+    M = GPLVM_M
+    info = {name: dict(fe=float(fe) if bool(torch.isfinite(fe)) else "non-finite",
+                       b_min_eig=float(torch.linalg.eigvalsh(
+        0.5 * (st.prec_v[:M, :M] + st.prec_v[:M, :M].T)).min()))
+        for name, (st, fe) in sweeps.items()}
+    info["x_means_abs"] = float((sk.x_means - sp.x_means).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in sk)
+    return d, limits, launches, info, finite, pts
+
+
+def _gplvm_front_end(seed, s, theta):
+    """Each model class's ``infer`` on the card at a small size (the GPLVM
+    at full width, one sweep), bit for bit against its direct call."""
+    from gaussianprocessnode_tpu_torch.dists import GammaShapeRate, MvGaussianNat
+    from gaussianprocessnode_tpu_torch.infer import batch_vmp, chain_smoother, gplvm, model
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.utils.datasets import (pendulum, toy_classification,
+                                                              toy_sinc)
+
+    k = Kernel("se", "softplus")
+    f64, dev = torch.float64, theta.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    same = {}
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for v in (x or ()) for t in leaves(v)]
+
+    def leaves_equal(a, b):
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) > 0 and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    same["GPLVM"] = leaves_equal(
+        model.GPLVM(k, s["Xu"]).infer(theta, s["Y"], s["Xm"], iterations=1),
+        gplvm.gplvm_vmp(k, theta, s["Xu"], s["Y"], s["Xm"], n_iters=1))
+    ds = toy_sinc(n_train=50, n_test=10, seed=seed)
+    Xu = t(np.linspace(-1.0, 1.0, 8)[:, None] * np.abs(ds.x_train).max())
+    th2 = t(np.log(np.expm1(np.ones(2))))
+    pv = MvGaussianNat(torch.zeros(8, dtype=f64, device=dev),
+                       torch.eye(8, dtype=f64, device=dev) / 50.0)
+    g = GammaShapeRate(t(1e-2), t(1e-2))
+    same["SGPRegression"] = leaves_equal(
+        model.SGPRegression(k, Xu).infer(th2, t(ds.x_train), t(ds.y_train), iterations=3),
+        batch_vmp.regression_vmp(k, th2, Xu, t(ds.x_train), t(ds.y_train), pv, g, n_iters=3))
+    dc = toy_classification(n_train=60, n_test=10, seed=seed)
+    Xc = t(dc.x_train[:8])
+    th3 = t(np.log(np.expm1(np.ones(1 + dc.x_train.shape[1]))))
+    same["SGPClassification"] = leaves_equal(
+        model.SGPClassification(k, Xc).infer(th3, t(dc.x_train), t(dc.y_train), iterations=3),
+        batch_vmp.classification_vmp(k, th3, Xc, t(dc.x_train), t(dc.y_train), pv, g, g,
+                                     n_iters=3))
+    _, ys, _, P, _ = pendulum()
+    g1, g2 = np.meshgrid(np.linspace(-2, 2, 4), np.linspace(-4, 4, 3), indexing="ij")
+    Xg = t(np.stack([g1.ravel(), g2.ravel()], axis=1))
+    x0, c0 = t([1.6, 0.0]), t(0.1 * np.eye(2))
+    pv2 = MvGaussianNat(torch.zeros(24, dtype=f64, device=dev),
+                        torch.eye(24, dtype=f64, device=dev) / 50.0)
+    same["GPSSM"] = leaves_equal(
+        model.GPSSM(k, Xg, t(P), x0, c0).infer(th3, t(ys[:30]), iterations=2),
+        chain_smoother.gpssm_vmp(k, th3, Xg, t(ys[:30]), t(P), x0, c0, pv2, 100.0,
+                                 torch.eye(2, dtype=f64, device=dev), n_iters=2))
+    return same
+
+
+def phase_gplvm(seed, card):
+    """The GPLVM slice at the runner's full width (N = 200, D = 12, Din = 2,
+    M = 30) and the model front-end:
+
+    - ``fit_gplvm_grad`` for 2 epochs in float64 on the card and on the
+      host in this process, held to each other (θ, FE trace, x-means, the
+      rows that moved counted) to the limits of the rounding twin; the
+      batched L-BFGS's host reads, linesearch iterations and evaluations
+      per sweep; a sweep's eager host time against its device time (a
+      profiler trace); no kernel launches (float64 takes the plain Gram);
+    - ``gplvm_embed`` of the training rows from the latents of 2 more
+      sweeps at the trained θ (a fixed point), and of 40 held-out rows
+      (their 1-NN accuracy against the trained latents' labels);
+    - float32 through the kernel against the plain Gram: the Ψ-statistics
+      of the trained marginals at 30×800×2 and one cold ``gplvm_vmp``
+      sweep (its q(v) naturals, from the marginals before any Laplace step,
+      held to bounds from ``gram_tolerance``; its x-means printed, not
+      held: f32 Laplace modes flip); its launches counted, counts at 0
+      just before; the two GPLVM Gram shapes held to plain and timed;
+    - each ``infer/model.py`` class's ``infer`` bit for bit against its
+      direct call on the card."""
+    say("phase 13/13 GPLVM and the model front-end: start")
+    from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
+    from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus")
+    out = {}
+
+    launches = se_gram_cuda.launches
+    counts = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card_fit = gplvm_fit(seed, "cuda", kern, counts)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host_fit = gplvm_fit(seed, "cpu")
+    host_s = time.perf_counter() - t
+    d = gplvm_diff(card_fit, host_fit)
+    s, theta, state, fe = card_fit
+    sweeps = GPLVM_EPOCHS * GPLVM_SWEEPS
+    per = {k: v / sweeps for k, v in counts.items()}
+    print(f"GPLVM fit_gplvm_grad float64 ({GPLVM_EPOCHS} epochs x {GPLVM_SWEEPS} sweeps, "
+          f"N={GPLVM_N}, M={GPLVM_M}): card {card_s:.2f} s, host {host_s:.2f} s; FE trace "
+          f"{fe.tolist()}, theta (softplus) {torch.nn.functional.softplus(theta).tolist()}; "
+          f"card vs host: " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" (limits {GPLVM_F64_LIMITS}, rows moved beyond {GPLVM_ROW_TOL:.0e}); per sweep: "
+          f"host reads {per['host_reads']:.1f}, linesearch iterations "
+          f"{per['linesearch_steps']:.1f}, evaluations {per['evaluations']:.1f} [{card}]",
+          flush=True)
+    check(bool(torch.isfinite(fe).all()) and bool(torch.isfinite(state.x_means).all()),
+          "GPLVM: non-finite fit on the card")
+    check(all(d[k] <= GPLVM_F64_LIMITS[k] for k in GPLVM_F64_LIMITS),
+          "GPLVM float64: card and host disagree")
+    check(se_gram_cuda.launches == launches, "GPLVM float64 launched the float32 kernel")
+    out["f64_card_vs_host"] = dict(diffs=d, card_seconds=card_s, host_seconds=host_s,
+                                   per_sweep=per, fe_trace=fe.tolist(),
+                                   theta_softplus=torch.nn.functional.softplus(theta).tolist())
+
+    def sweep():
+        return gplvm_vmp(kern, theta, s["Xu"], s["Y"], s["Xm"], n_iters=1, compute_fe=False,
+                         init_state=state)
+
+    host_ms, queue_ms = eager_ms(sweep, 1)
+    prof = profile_epoch(sweep, f"GPLVM float64 sweep (N={GPLVM_N}, M={GPLVM_M})", card)
+    print(f"GPLVM float64 sweep: eager {host_ms:.2f} ms host clock (queued in {queue_ms:.2f} "
+          f"ms), device {prof['device_ms'] if prof else float('nan'):.2f} ms (profiler), "
+          f"{per['host_reads']:.1f} host reads [{card}]", flush=True)
+    out["sweep"] = dict(eager_host_ms=host_ms, queue_ms=queue_ms, profile=prof)
+
+    # the embedding, from more sweeps at the trained θ
+    s6, _ = gplvm_vmp(kern, theta, s["Xu"], s["Y"], s["Xm"], n_iters=GPLVM_POLISH_SWEEPS,
+                      init_state=state, compute_fe=False)
+    m, V = gplvm_embed(kern, theta, s["Xu"], s["Y"], s6, s["Xm"], x_start=s6.x_means,
+                       n_iters=1)
+    fixed = float((m - s6.x_means).abs().max())
+    mh, Vh = gplvm_embed(kern, theta, s["Xu"], s["Y_held"], s6, s["Xm_held"])
+    Z, Zh = s6.x_means.cpu().numpy(), mh.cpu().numpy()
+    lab = s["labels"]
+    nn = ((Zh[:, None, :] - Z[None, :, :]) ** 2).sum(-1).argmin(axis=1)
+    acc_held = float((lab[:GPLVM_N][nn] == lab[GPLVM_N:]).mean())
+    acc_train, acc_pca = knn_accuracy(Z, lab[:GPLVM_N]), knn_accuracy(
+        s["Xm"].cpu().numpy(), lab[:GPLVM_N])
+    print(f"GPLVM embedding: training rows from the trained latents move by {fixed:.3e} "
+          f"(limit {GPLVM_FIXED_POINT:.0e}); {GPLVM_HELD} held-out rows 1-NN accuracy "
+          f"{acc_held:.3f} against the trained latents (training latents {acc_train:.3f}, "
+          f"PCA {acc_pca:.3f}) [{card}]", flush=True)
+    check(fixed <= GPLVM_FIXED_POINT, "GPLVM: trained latents are not fixed points of the embed")
+    check(all(bool(torch.isfinite(x).all()) for x in (m, V, mh, Vh)),
+          "GPLVM embedding: non-finite result")
+    check(se_gram_cuda.launches == launches, "GPLVM float64 launched the float32 kernel")
+    out["embedding"] = dict(fixed_point=fixed, held_out_knn=acc_held, train_knn=acc_train,
+                            pca_knn=acc_pca)
+
+    # float32 through the kernel
+    d32, lim32, l32, info32, fin32, pts = _gplvm_f32(s, theta, s6, kern, plain)
+    print("GPLVM float32 kernel vs plain: " + ", ".join(
+        f"{k} {v:.3e} (limit {lim32[k]:.3e})" for k, v in d32.items())
+          + f"; one cold sweep: FE kernel {info32['kernel']['fe']}, plain "
+          f"{info32['plain']['fe']}, smallest eigenvalue of B = Kuu + w*sum(Psi2) kernel "
+          f"{info32['kernel']['b_min_eig']:.3e}, plain {info32['plain']['b_min_eig']:.3e}, "
+          f"x-means differ by {info32['x_means_abs']:.3e} (not held: float32 Laplace modes "
+          f"flip); sweep launches {l32} (expected {GPLVM_F32_SWEEP_LAUNCHES}) [{card}]",
+          flush=True)
+    check(fin32, "GPLVM float32 sweep: non-finite state")
+    check(all(d32[k] <= lim32[k] for k in d32), "GPLVM float32: kernel and plain disagree")
+    check(l32 == GPLVM_F32_SWEEP_LAUNCHES,
+          f"GPLVM float32 sweep: {l32} launches, expected {GPLVM_F32_SWEEP_LAUNCHES}")
+    out["f32_kernel_vs_plain"] = dict(diffs=d32, limits=lim32, sweep=info32)
+    out["launches"] = l32
+
+    # the two Gram shapes, held to plain and timed (not counted on any path)
+    before = se_gram_cuda.launches
+    th32, Xu32 = theta.float(), s["Xu"].float()
+    var, ls = plain.params(th32)
+    ls = ls.contiguous()
+    errs, shapes = {}, []
+    for (M, N, role), X in zip(GPLVM_SHAPES, (pts.reshape(-1, GPLVM_DIN).contiguous(), Xu32)):
+        K = se_gram_cuda(Xu32, X, var, ls)
+        errs[f"{M}x{N}x{GPLVM_DIN}"] = _held_to_plain(f"{M}x{N}x{GPLVM_DIN} ({role})", Xu32, X,
+                                                      var, ls, K)
+        shapes.append(time_gram(Xu32, X, var, ls, role, card))
+    se_gram_cuda.launches = before
+    out.update(gram_max_abs=errs, shapes=shapes)
+
+    same = _gplvm_front_end(seed, s, theta)
+    print("model front-end on the card, infer against its direct call: " + ", ".join(
+        f"{k} {'equal' if v else 'DIFFERENT'}" for k, v in same.items()) + f" [{card}]",
+          flush=True)
+    check(all(same.values()), f"model front-end differs from its direct calls: {same}")
+    check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
+    out["front_end_equal"] = same
+    out["launches_by_path"] = {"gplvm_f32_sweep": l32}
+    say("phase 13/13 GPLVM and the model front-end: done")
     return out
 
 
@@ -2118,6 +2456,7 @@ def main(argv=None) -> int:
         vsgp = phase_vsgp(args.seed, card)
         multi = phase_multi(args.seed, card)
         gpssm = phase_gpssm(args.seed, card)
+        gplvm = phase_gplvm(args.seed, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -2135,7 +2474,7 @@ def main(argv=None) -> int:
                      + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
                      + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
-                     + gpssm["launches"]),
+                     + gpssm["launches"] + gplvm["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -2149,7 +2488,7 @@ def main(argv=None) -> int:
                              "svgp_minibatch_f32": vsgp["svgp"]["launches"],
                              "fitc_f32": vsgp["fitc"]["launches"],
                              "multi_objective_f32": multi["objective"]["launches"],
-                             **gpssm["launches_by_path"]},
+                             **gpssm["launches_by_path"], **gplvm["launches_by_path"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -2166,7 +2505,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": t30["shape"],
         "shapes": (shapes + banana["shapes"] + [classifier["shape"]] + toy["shapes"]
-                   + multi["shapes"] + gpssm["shapes"]),
+                   + multi["shapes"] + gpssm["shapes"] + gplvm["shapes"]),
         "ms_600x10000": t10["device_ms"],
         "plain_ms_600x10000": t10["plain_ms"],
         "bound_ms_600x10000": t10["bound_ms"],
@@ -2185,6 +2524,7 @@ def main(argv=None) -> int:
         "vsgp": vsgp,
         "multi": {k: v for k, v in multi.items() if k != "shapes"},
         "gpssm": {k: v for k, v in gpssm.items() if k != "shapes"},
+        "gplvm": {k: v for k, v in gplvm.items() if k != "shapes"},
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -19,6 +19,9 @@ collapsed chunk resumes from a JAX chunk. :func:`gpssm_state_from_jax` and
 :func:`ut_state_from_jax` carry a GPSSM chain smoother's and a UT
 smoother's state, so a JAX state warm-starts the port's engines and a
 trained JAX chain serves through the port's ``serve.GPSSMFilter``.
+:func:`gplvm_state_from_jax` carries a GPLVM mean-field state, so a JAX
+state warm-starts ``gplvm_vmp`` or ``fit_gplvm_grad``, or is embedded
+against by ``gplvm_embed``.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from .dists import GammaShapeRate, Gaussian, MvGaussian, MvGaussianNat
 from .infer.batch_vmp import VMPResult
 from .infer.chain_smoother import GPSSMState
 from .infer.fitc import SparseGPParams
+from .infer.gplvm import GPLVMState
 from .infer.minibatch import FastCarry, MinibatchCarry
 from .infer.svgp import SVGPParams
 from .infer.ut_smoother import UTSmootherState
@@ -37,7 +41,7 @@ from .serve import SGPClassifier, SGPRegressor
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
            "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
            "sparse_gp_params_from_jax", "adamax_state_from_jax", "gpssm_state_from_jax",
-           "ut_state_from_jax"]
+           "ut_state_from_jax", "gplvm_state_from_jax"]
 
 
 def _nat(xi, prec):
@@ -172,3 +176,14 @@ def ut_state_from_jax(state, device="cuda") -> UTSmootherState:
     """The port's :class:`UTSmootherState` from the JAX one (numpy leaves),
     field for field, dtypes kept."""
     return _params(UTSmootherState, state, _tensor(device))
+
+
+def gplvm_state_from_jax(state, device="cuda") -> GPLVMState:
+    """The port's :class:`GPLVMState` from the JAX ``GPLVMState`` (numpy
+    leaves): the latents' means and covariances in the model's dtype as
+    they come, the q(v) naturals in float64 (as every GPLVM state holds
+    them)."""
+    t = _tensor(device)
+    x_means, x_covs, xi_v, prec_v = state
+    return GPLVMState(t(x_means), t(x_covs), t(xi_v).to(torch.float64),
+                      t(prec_v).to(torch.float64))

@@ -10,8 +10,12 @@ trains with the per-batch ``fit_kin40k`` instead and, as the JAX runner
 does, in float64, whose Grams take the plain route by dtype
 (``ops/se_gram.py::se_gram_auto``); ``run(faithful=True,
 dtype=torch.float32)`` keeps it in float32, through the kernel.
+``--ns-budget`` sets the faithful trainer's Newton–Schulz count (34 by
+default), and the faithful run goes in chunks of max(10, ⌊50·34/budget⌋)
+epochs, each resuming the last one's carry: the JAX runner's snapshot
+cadence.
 
-    python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful]
+    python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful [--ns-budget 60]]
 
 prints one JSON line: ``value`` (seconds for the epochs, host clock
 between two ``torch.cuda.synchronize()`` calls), ``smse``, ``device`` (the
@@ -31,7 +35,7 @@ import torch
 
 from ..dists import MvGaussianNat
 from ..infer.batch_vmp import predict_out
-from ..infer.minibatch import fit_kin40k, fit_kin40k_fast
+from ..infer.minibatch import KIN40K_BATCH_NS_ITERS, fit_kin40k, fit_kin40k_fast
 from ..ops.kernels import Kernel, invsoftplus
 from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
@@ -39,7 +43,7 @@ from ..utils.datasets import kin40k, kin40k_synthetic
 from ..utils.metrics import smse
 from ..utils.profiling import card_info, synchronize
 
-__all__ = ["W_VAL", "load_data", "setup", "run"]
+__all__ = ["W_VAL", "load_data", "setup", "faithful_chunk", "run"]
 
 W_VAL = 1e4  # kin40k's fixed noise precision
 
@@ -88,13 +92,21 @@ def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
     return mean
 
 
+def faithful_chunk(ns_budget: int) -> int:
+    """Epochs per chunk of the faithful run: the JAX runner's snapshot
+    cadence, 50 epochs at the production budget of 34 iterations, scaled
+    down for larger budgets, never below 10."""
+    return max(10, int(50 * KIN40K_BATCH_NS_ITERS / ns_budget))
+
+
 def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
         data: str = "synthetic", device: str = "cuda", faithful: bool = False,
-        dtype=None) -> dict:
+        dtype=None, ns_budget: int = KIN40K_BATCH_NS_ITERS) -> dict:
     """Train θ for ``epochs`` epochs (learning rate 1e-3) with
     ``fit_kin40k_fast`` (one statistics refresh per epoch) or, with
-    ``faithful``, ``fit_kin40k``, and score the test set. ``dtype``
+    ``faithful``, ``fit_kin40k`` at ``ns_budget`` in chunks of
+    :func:`faithful_chunk` epochs, and score the test set. ``dtype``
     defaults to float32, and to float64 with ``faithful``. Returns the
     result dict that the command line prints."""
     dev = torch.device(device)
@@ -112,7 +124,12 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
     se_gram_cuda.launches = 0
     t0 = time.perf_counter()
     if faithful:
-        theta, qv_nat, _ = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, epochs)
+        carry, done = None, 0
+        while done < epochs:
+            n = min(faithful_chunk(ns_budget), epochs - done)
+            theta, qv_nat, carry = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, n,
+                                              resume_state=carry, ns_budget=ns_budget)
+            done += n
         cov64 = None
     else:
         theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,
@@ -135,6 +152,7 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         "gram_launches": launches,
         "data": data,
         "seed": seed,
+        "ns_budget": ns_budget if faithful else None,
         "theta_softplus": torch.logaddexp(theta, torch.zeros_like(theta)).tolist(),
     }
 
@@ -146,8 +164,11 @@ def main(argv=None) -> int:
     ap.add_argument("--data", choices=("synthetic", "kin40k"), default="synthetic")
     ap.add_argument("--faithful", action="store_true",
                     help="the per-batch schedule fit_kin40k, in float64")
+    ap.add_argument("--ns-budget", type=int, default=KIN40K_BATCH_NS_ITERS,
+                    help="fit_kin40k's Newton-Schulz iterations per batch (--faithful)")
     args = ap.parse_args(argv)
-    out = run(epochs=args.epochs, seed=args.seed, data=args.data, faithful=args.faithful)
+    out = run(epochs=args.epochs, seed=args.seed, data=args.data, faithful=args.faithful,
+              ns_budget=args.ns_budget)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -67,7 +67,7 @@ NS_ITERS_WARMUP = 40
 NS_ITERS_STEADY = 8
 REFRESH_NS_ITERS_SCALED = 28
 # the per-batch trainers' warm q(v) refresh: fit_banana's plain iteration,
-# fit_kin40k's spectrum-scaled one
+# fit_kin40k's spectrum-scaled one (the default of its ``ns_budget``)
 BANANA_BATCH_NS_ITERS = 30
 KIN40K_BATCH_NS_ITERS = 34
 
@@ -473,15 +473,17 @@ def fit_kin40k(
     epochs: int,
     learning_rate: float = 0.001,
     resume_state: MinibatchCarry | None = None,
+    ns_budget: int = KIN40K_BATCH_NS_ITERS,
 ):
     """kin40k trainer with the reference's per-batch schedule
     (regression_kin40k.ipynb cells 9-10), on the device of its tensors: w is
     a PointMass (``w_val``); q(v) resets to the prior each epoch; per batch,
     q(v) takes that batch's natural-parameter increment (f64 products), its
     inverse is refreshed by ``spd_inverse`` warm-started from the previous
-    batch's (``KIN40K_BATCH_NS_ITERS`` spectrum-scaled iterations, λ_min
-    bound of the prior), μ_v by ``ir_solve`` (3 rounds), then one AdaMax
-    step on the objective (Kuu⁻¹ by as many iterations).
+    batch's (``ns_budget`` spectrum-scaled iterations, λ_min bound of the
+    prior), μ_v by ``ir_solve`` (3 rounds), then one AdaMax step on the
+    objective (Kuu⁻¹ by as many iterations). ``ns_budget`` is the JAX
+    trainer's: 34 in production, 60 for the budget measurement.
 
     ``resume_state``: a carry from an earlier call (or from
     ``convert.banana_state_from_jax`` of a JAX carry); it is copied, not
@@ -494,7 +496,7 @@ def fit_kin40k(
     dev = theta0.device
     # Λ = Λ_prior + Σ w·KKᵀ ⪰ Λ_prior for every batch of every epoch
     lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
-    grad = _objective_grad(kernel, Xu, dt, KIN40K_BATCH_NS_ITERS)
+    grad = _objective_grad(kernel, Xu, dt, ns_budget)
     theta_step = make_theta_step(lambda th, kw, b: grad(th, kw, *b, w_val), optimizer)
     xi_prior, prec_prior = prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt)
 
@@ -517,8 +519,7 @@ def fit_kin40k(
                 Kux64 = kernel(theta, Xu, Xb).to(acc_dt)
                 xi = xi + w_val * torch.matmul(Kux64, yb.to(acc_dt))
                 prec = prec + w_val * torch.matmul(Kux64, Kux64.T)
-                cov = spd_inverse(sym(prec), warm=cov, iters=KIN40K_BATCH_NS_ITERS,
-                                  lambda_min=lam_v)
+                cov = spd_inverse(sym(prec), warm=cov, iters=ns_budget, lambda_min=lam_v)
                 mu64 = ir_solve(sym(prec), xi, cov, rounds=3)
                 mu_v = mu64.to(dt)
                 Rv = (cov + torch.outer(mu64, mu64)).to(dt)

@@ -31,6 +31,13 @@ gradient (a few hundred kernels of 20×50 tensors, forward and backward) in
 one CUDA graph and replays it for every evaluation: queued one by one, the
 host took ~6 ms to launch what the card ran in ~1 ms, once for every
 linesearch iteration.
+
+``lbfgs_solve_batched`` runs the same optimizer, the same arithmetic, over
+the rows of a batch as ``jax.vmap(lbfgs_solve)`` does (the GPLVM's
+Laplace step): each row keeps its own memory, phase and stop, a finished
+row is frozen by ``torch.where``, the objective is evaluated once per
+linesearch iteration for all rows, and the one host read per iteration is
+whether any row is still active.
 """
 
 import math
@@ -43,7 +50,7 @@ from ..objectives import neg_log_backwardmess_fast
 from ..ops.linalg import rv_chol_upper
 from .batch_vmp import classification_vmp, regression_vmp
 
-__all__ = ["lbfgs_solve", "fit_regression", "fit_classification"]
+__all__ = ["lbfgs_solve", "lbfgs_solve_batched", "fit_regression", "fit_classification"]
 
 MEMORY_SIZE = 10
 MAX_LINESEARCH_STEPS = 20
@@ -116,18 +123,31 @@ class LBFGSState(NamedTuple):
     count: int  # the step, known on the host
     params: torch.Tensor
     updates: torch.Tensor
-    diff_params_memory: torch.Tensor  # (MEMORY_SIZE, n)
+    diff_params_memory: torch.Tensor  # (MEMORY_SIZE, *x.shape)
     diff_updates_memory: torch.Tensor
-    weights_memory: torch.Tensor  # (MEMORY_SIZE,)
+    weights_memory: torch.Tensor  # (MEMORY_SIZE,) or (MEMORY_SIZE, N, 1) by row
 
 
-def _lbfgs_init(x) -> LBFGSState:
+# The solver runs on one problem (x of shape (n,), its scalars 0-d, reduced
+# by torch.dot / torch.sum) or on the rows of a batch (x of shape (N, d),
+# each row's scalars kept as (N, 1) so that they broadcast against the rows
+# as a 0-d scalar against a vector): the same arithmetic, row by row.
+def _rowdot(a, b):
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def _rowsum(t):
+    return torch.sum(t, dim=-1, keepdim=True)
+
+
+def _lbfgs_init(x, scalar_shape=()) -> LBFGSState:
     z = torch.zeros((MEMORY_SIZE,) + x.shape, dtype=x.dtype, device=x.device)
     return LBFGSState(0, torch.zeros_like(x), torch.zeros_like(x), z, z.clone(),
-                      torch.zeros((MEMORY_SIZE,), dtype=x.dtype, device=x.device))
+                      torch.zeros((MEMORY_SIZE,) + scalar_shape, dtype=x.dtype,
+                                  device=x.device))
 
 
-def _precondition(updates, dws, dus, rhos, identity_scale, memory_idx):
+def _precondition(updates, dws, dus, rhos, identity_scale, memory_idx, dot):
     """Two-loop recursion (Nocedal & Wright Algorithm 7.4), newest pair
     last, in optax's order."""
     indices = [(memory_idx + i) % MEMORY_SIZE for i in range(MEMORY_SIZE)]
@@ -135,18 +155,18 @@ def _precondition(updates, dws, dus, rhos, identity_scale, memory_idx):
     alphas = [None] * MEMORY_SIZE
     for i in reversed(range(MEMORY_SIZE)):
         idx = indices[i]
-        alpha = rhos[idx] * torch.dot(dws[idx], vec)
+        alpha = rhos[idx] * dot(dws[idx], vec)
         vec = vec + (-alpha) * dus[idx]
         alphas[i] = alpha
     vec = identity_scale * vec
     for i in range(MEMORY_SIZE):
         idx = indices[i]
-        beta = rhos[idx] * torch.dot(dus[idx], vec)
+        beta = rhos[idx] * dot(dus[idx], vec)
         vec = vec + (alphas[i] - beta) * dws[idx]
     return vec
 
 
-def _lbfgs_update(g, state: LBFGSState, params):
+def _lbfgs_update(g, state: LBFGSState, params, dot=torch.dot, total=torch.sum):
     """The L-BFGS direction P·g and the next state (the memory takes the
     pair (Δparams, Δgrad) of the previous step first)."""
     k = state.count
@@ -154,7 +174,7 @@ def _lbfgs_update(g, state: LBFGSState, params):
     prev_idx = (k - 1) % MEMORY_SIZE
     diff_params = params - state.params
     diff_updates = g - state.updates
-    vdot = torch.dot(diff_updates, diff_params)
+    vdot = dot(diff_updates, diff_params)
     weight = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
     if k == 0:
         diff_params = torch.zeros_like(diff_params)
@@ -167,14 +187,14 @@ def _lbfgs_update(g, state: LBFGSState, params):
     dus[prev_idx] = diff_updates
     rhos[prev_idx] = weight
     if k > 0:
-        numerator = torch.dot(diff_updates, diff_params)
-        denominator = torch.sum(diff_updates * diff_updates)
+        numerator = dot(diff_updates, diff_params)
+        denominator = total(diff_updates * diff_updates)
         identity_scale = torch.where(denominator > 0.0, numerator / denominator,
                                      torch.ones_like(numerator))
     else:
-        update_norm = torch.sqrt(torch.sum(g * g))
+        update_norm = torch.sqrt(total(g * g))
         identity_scale = torch.clamp_max(1.0 / update_norm, 1.0)
-    precond = _precondition(g, dws, dus, rhos, identity_scale, memory_idx)
+    precond = _precondition(g, dws, dus, rhos, identity_scale, memory_idx, dot)
     return precond, LBFGSState(k + 1, params, g, dws, dus, rhos)
 
 
@@ -230,107 +250,198 @@ def _where(c, a, b):
     return [torch.where(c, x, y) for x, y in zip(a, b)]
 
 
+def _linesearch_init(value, slope):
+    """optax's ``ZoomLinesearchState`` less the fields that decide no
+    stepsize (the gradients, the curvature error, the slope at ``high``)."""
+    zero = torch.zeros_like(value)
+    return dict(stepsize=zero, value=value, slope=slope, decrease_error=zero + math.inf,
+                low=zero, value_low=value, slope_low=slope, high=zero, value_high=value,
+                cubic_ref=zero, value_cubic_ref=value, safe_stepsize=zero, safe_value=value)
+
+
+def _zoom_candidate(s):
+    """The zoom's trial stepsize (Nocedal & Wright Algorithm 3.6): the cubic
+    interpolant's minimiser, else the quadratic's, each only well inside
+    the interval, else bisection; and whether the interval is below its
+    threshold."""
+    low, value_low, slope_low = s["low"], s["value_low"], s["slope_low"]
+    high, value_high = s["high"], s["value_high"]
+    delta = torch.abs(high - low)
+    left, right = torch.minimum(high, low), torch.maximum(high, low)
+    cubic_chk, quad_chk = 0.2 * delta, 0.1 * delta
+    mc = _cubicmin(low, value_low, slope_low, high, value_high, s["cubic_ref"],
+                   s["value_cubic_ref"])
+    use_cubic = (mc > left + cubic_chk) & (mc < right - cubic_chk)
+    mq = _quadmin(low, value_low, slope_low, high, value_high)
+    use_quad = ~use_cubic & (mq > left + quad_chk) & (mq < right - quad_chk)
+    use_bisection = ~use_cubic & ~use_quad
+    middle = torch.where(use_cubic, mc, s["cubic_ref"])
+    middle = torch.where(use_quad, mq, middle)
+    middle = torch.where(use_bisection, (low + high) / 2.0, middle)
+    return middle, delta <= STEPSIZE_PRECISION
+
+
+def _search_update(s, stepsize, v, sl, dec, first):
+    """The interval search's state after the trial (stepsize, v, sl)
+    (Nocedal & Wright Algorithm 3.5), and whether it bracketed an
+    interval."""
+    new = dict(s)
+    new["safe_stepsize"], new["safe_value"] = _where(
+        dec <= TOL, [stepsize, v], [s["safe_stepsize"], s["safe_value"]])
+    set_high = dec > 0.0
+    if not first:
+        set_high = set_high | (v >= s["value"])
+    set_low = (sl >= 0.0) & ~set_high
+    prev = [s["stepsize"], s["value"], s["slope"]]
+    trial = [stepsize, v, sl]
+    lo = _where(set_low, trial, prev)
+    hi = _where(set_low, prev, trial)
+    new["low"], new["value_low"], new["slope_low"] = lo
+    new["high"], new["value_high"] = hi[0], hi[1]
+    new["cubic_ref"], new["value_cubic_ref"] = lo[0], lo[1]
+    return new, set_high | set_low
+
+
+def _zoom_update(s, middle, v, sl, dec):
+    """The zoom's state after the trial (middle, v, sl)."""
+    new = dict(s)
+    low, value_low, slope_low = s["low"], s["value_low"], s["slope_low"]
+    high, value_high = s["high"], s["value_high"]
+    update_safe = (dec <= TOL) & (v < s["safe_value"])
+    new["safe_stepsize"], new["safe_value"] = _where(
+        update_safe, [middle, v], [s["safe_stepsize"], s["safe_value"]])
+    set_high_to_middle = (dec > 0.0) | (v >= value_low)
+    set_high_to_low = (sl * (high - low) >= 0.0) & ~set_high_to_middle
+    set_low_to_middle = ~set_high_to_middle
+    hi = _where(set_high_to_middle, [middle, v], [high, value_high])
+    new["high"], new["value_high"] = _where(set_high_to_low, [low, value_low], hi)
+    new["low"], new["value_low"], new["slope_low"] = _where(
+        set_low_to_middle, [middle, v, sl], [low, value_low, slope_low])
+    new["cubic_ref"], new["value_cubic_ref"] = _where(
+        set_high_to_middle | set_high_to_low, [high, value_high], [low, value_low])
+    return new
+
+
+def _safe_step(s):
+    """The stepsize a failed search takes: the best point with sufficient
+    decrease, or no move when the last point lies outside the domain (NaN
+    value)."""
+    take_safe = (s["safe_stepsize"] > 0.0) | torch.isinf(s["decrease_error"])
+    return torch.where(take_safe, s["safe_stepsize"], s["stepsize"])
+
+
 def zoom_linesearch(value_and_grad, params, updates, value, grad, counts=None):
     """optax ``scale_by_zoom_linesearch(max_linesearch_steps=20,
     initial_guess_strategy='one')`` along ``updates`` from ``params``, with
     ``value_and_grad(x) -> (value, gradient)``: returns the stepsize. One
-    host read per iteration. The state is optax's ``ZoomLinesearchState``
-    less the fields that decide no stepsize (the gradients, the curvature
-    error, the slope at ``high``)."""
-    zero = torch.zeros((), dtype=params.dtype, device=params.device)
+    host read per iteration: the phase (interval search or zoom) and the
+    end are steered from the host."""
     slope = torch.dot(updates, grad)
-    s = dict(stepsize=zero, value=value, slope=slope, decrease_error=zero + math.inf,
-             low=zero, value_low=value, slope_low=slope, high=zero, value_high=value,
-             cubic_ref=zero, value_cubic_ref=value, safe_stepsize=zero, safe_value=value)
+    s = _linesearch_init(value, slope)
     value_init, slope_init = value, slope
     interval_found = False
     it = 0
     while True:
         last = it + 1 >= MAX_LINESEARCH_STEPS
-        if not interval_found:
-            # the interval search (Nocedal & Wright Algorithm 3.5)
-            new_stepsize = zero + 1.0 if it == 0 else INCREASE_FACTOR * s["stepsize"]
-            v, g = value_and_grad(params + new_stepsize * updates)
-            sl = torch.dot(g, updates)
-            dec = _decrease_error(new_stepsize, v, sl, value_init, slope_init)
-            curv = _curvature_error(sl, slope_init)
-            err = torch.maximum(dec, curv)
-            s["safe_stepsize"], s["safe_value"] = _where(
-                dec <= TOL, [new_stepsize, v], [s["safe_stepsize"], s["safe_value"]])
-            set_high = dec > 0.0
-            if it > 0:
-                set_high = set_high | (v >= s["value"])
-            set_low = (sl >= 0.0) & ~set_high
-            prev = [s["stepsize"], s["value"], s["slope"]]
-            new = [new_stepsize, v, sl]
-            lo = _where(set_low, new, prev)
-            hi = _where(set_low, prev, new)
-            s["low"], s["value_low"], s["slope_low"] = lo
-            s["high"], s["value_high"] = hi[0], hi[1]
-            s["cubic_ref"], s["value_cubic_ref"] = lo[0], lo[1]
-            found = set_high | set_low | (err <= TOL)
-            done = err <= TOL
-            failed = ~done if last else torch.zeros_like(done)
+        if interval_found:
+            new_stepsize, too_small_int = _zoom_candidate(s)
         else:
-            # the zoom (Nocedal & Wright Algorithm 3.6)
-            low, value_low, slope_low = s["low"], s["value_low"], s["slope_low"]
-            high, value_high = s["high"], s["value_high"]
-            delta = torch.abs(high - low)
-            left, right = torch.minimum(high, low), torch.maximum(high, low)
-            cubic_chk, quad_chk = 0.2 * delta, 0.1 * delta
-            too_small_int = delta <= STEPSIZE_PRECISION
-            mc = _cubicmin(low, value_low, slope_low, high, value_high, s["cubic_ref"],
-                           s["value_cubic_ref"])
-            use_cubic = (mc > left + cubic_chk) & (mc < right - cubic_chk)
-            mq = _quadmin(low, value_low, slope_low, high, value_high)
-            use_quad = ~use_cubic & (mq > left + quad_chk) & (mq < right - quad_chk)
-            use_bisection = ~use_cubic & ~use_quad
-            middle = torch.where(use_cubic, mc, s["cubic_ref"])
-            middle = torch.where(use_quad, mq, middle)
-            middle = torch.where(use_bisection, (low + high) / 2.0, middle)
-            new_stepsize = middle
-            v, g = value_and_grad(params + middle * updates)
-            sl = torch.dot(g, updates)
-            dec = _decrease_error(middle, v, sl, value_init, slope_init)
-            curv = _curvature_error(sl, slope_init)
-            err = torch.maximum(dec, curv)
-            update_safe = (dec <= TOL) & (v < s["safe_value"])
-            s["safe_stepsize"], s["safe_value"] = _where(
-                update_safe, [middle, v], [s["safe_stepsize"], s["safe_value"]])
-            done = err <= TOL
-            set_high_to_middle = (dec > 0.0) | (v >= value_low)
-            set_high_to_low = (sl * (high - low) >= 0.0) & ~set_high_to_middle
-            set_low_to_middle = ~set_high_to_middle
-            hi = _where(set_high_to_middle, [middle, v], [high, value_high])
-            hi = _where(set_high_to_low, [low, value_low], hi)
-            lo = _where(set_low_to_middle, [middle, v, sl], [low, value_low, slope_low])
-            s["cubic_ref"], s["value_cubic_ref"] = _where(
-                set_high_to_middle | set_high_to_low, [high, value_high], [low, value_low])
-            s["high"], s["value_high"] = hi
-            s["low"], s["value_low"], s["slope_low"] = lo
+            new_stepsize = s["stepsize"] + 1.0 if it == 0 else INCREASE_FACTOR * s["stepsize"]
+        v, g = value_and_grad(params + new_stepsize * updates)
+        sl = torch.dot(g, updates)
+        dec = _decrease_error(new_stepsize, v, sl, value_init, slope_init)
+        err = torch.maximum(dec, _curvature_error(sl, slope_init))
+        done = err <= TOL
+        if interval_found:
+            s = _zoom_update(s, new_stepsize, v, sl, dec)
             presumably_failed = too_small_int & (s["safe_stepsize"] > 0.0)
             if last:
                 presumably_failed = torch.ones_like(presumably_failed)
             failed = presumably_failed & ~done
             found = torch.ones_like(done)
-        s["stepsize"], s["value"], s["slope"], s["decrease_error"] = new_stepsize, v, sl, dec
+        else:
+            s, found = _search_update(s, new_stepsize, v, sl, dec, it == 0)
+            found = found | done
+            failed = ~done if last else torch.zeros_like(done)
+        s.update(stepsize=new_stepsize, value=v, slope=sl, decrease_error=dec)
         it += 1
         flags = torch.stack([found, done, failed]).tolist()  # the one host read
         _add(counts, "host_reads")
         _add(counts, "linesearch_steps")
         interval_found, is_done, is_failed = flags
         if is_failed:
-            # the safe step: the best point with sufficient decrease, or no
-            # move when the last point lies outside the domain (NaN value)
-            take_safe = (s["safe_stepsize"] > 0.0) | torch.isinf(s["decrease_error"])
-            s["stepsize"] = torch.where(take_safe, s["safe_stepsize"], s["stepsize"])
+            s["stepsize"] = _safe_step(s)
         if is_done or is_failed:
+            return s["stepsize"]
+
+
+def zoom_linesearch_rows(value_and_grad, params, updates, value, grad, counts=None):
+    """:func:`zoom_linesearch` for every row of ``params`` (N, d) at once,
+    as ``jax.vmap`` runs optax's: each row has its own phase, state and
+    ``done``/``failed`` (scalars as (N, 1)); a finished row is frozen
+    while the others go on. Each iteration takes each active row's trial
+    stepsize from its phase, evaluates the objective once on the whole
+    batch (rows are independent, so this is each row's own evaluation) and
+    updates every state by ``torch.where``. One host read per iteration:
+    whether any row is still active. Returns the stepsizes (N, 1)."""
+    slope = _rowdot(updates, grad)
+    s = _linesearch_init(value, slope)
+    value_init, slope_init = value, slope
+    interval_found = torch.zeros_like(value, dtype=torch.bool)
+    active = torch.ones_like(interval_found)
+    it = 0
+    while True:
+        last = it + 1 >= MAX_LINESEARCH_STEPS
+        middle, too_small_int = _zoom_candidate(s)
+        grown = s["stepsize"] + 1.0 if it == 0 else INCREASE_FACTOR * s["stepsize"]
+        # a finished row is evaluated at its last point and keeps its state
+        new_stepsize = torch.where(active, torch.where(interval_found, middle, grown),
+                                   s["stepsize"])
+        v, g = value_and_grad(params + new_stepsize * updates)
+        sl = _rowdot(g, updates)
+        dec = _decrease_error(new_stepsize, v, sl, value_init, slope_init)
+        err = torch.maximum(dec, _curvature_error(sl, slope_init))
+        done = err <= TOL
+        search, found = _search_update(s, new_stepsize, v, sl, dec, it == 0)
+        zoom = _zoom_update(s, new_stepsize, v, sl, dec)
+        failed = active & ~done & torch.where(
+            interval_found, too_small_int & (zoom["safe_stepsize"] > 0.0) | last,
+            torch.full_like(done, last))
+        for key in s:
+            s[key] = torch.where(active, torch.where(interval_found, zoom[key], search[key]),
+                                 s[key])
+        for key, val in (("stepsize", new_stepsize), ("value", v), ("slope", sl),
+                         ("decrease_error", dec)):
+            s[key] = torch.where(active, val, s[key])
+        s["stepsize"] = torch.where(failed, _safe_step(s), s["stepsize"])
+        interval_found = interval_found | (active & (found | done))
+        active = active & ~done & ~failed
+        it += 1
+        _add(counts, "linesearch_steps")
+        _add(counts, "host_reads")
+        if not bool(active.any()):  # the one host read
             return s["stepsize"]
 
 
 # ---------------------------------------------------------------------------
 # optax.lbfgs() for a fixed number of steps
 # ---------------------------------------------------------------------------
+
+
+def _lbfgs_steps(value_and_grad, linesearch, x, state, max_steps, dot, total):
+    """``max_steps`` L-BFGS steps from x; a step whose iterate is not
+    finite keeps x (per row in a batch). Returns (x, values at each step's
+    start)."""
+    values = []
+    with torch.no_grad():
+        for _ in range(max_steps):
+            v, g = value_and_grad(x)
+            precond, state = _lbfgs_update(g, state, x, dot, total)
+            direction = -precond
+            x_new = x + linesearch(value_and_grad, x, direction, v, g) * direction
+            x = torch.where(total((~torch.isfinite(x_new)).to(x.dtype)) == 0, x_new, x)
+            values.append(v)
+    return x, torch.stack(values)
 
 
 def lbfgs_solve(objective, x0, max_steps: int = 60, counts=None):
@@ -346,19 +457,42 @@ def lbfgs_solve(objective, x0, max_steps: int = 60, counts=None):
     host reads (``host_reads``) and, on the card, the CUDA graph captures of
     the evaluation (``graph_captures``) are added."""
     x = x0.detach().clone()
-    state = _lbfgs_init(x)
-    values = []
     value_and_grad = _ValueAndGrad(objective, x, counts)
-    with torch.no_grad():
-        for _ in range(max_steps):
-            v, g = value_and_grad(x)
-            precond, state = _lbfgs_update(g, state, x)
-            direction = -precond
-            stepsize = zoom_linesearch(value_and_grad, x, direction, v, g, counts)
-            x_new = x + stepsize * direction
-            x = torch.where(torch.all(torch.isfinite(x_new)), x_new, x)
-            values.append(v)
-    return x, torch.stack(values)
+
+    def linesearch(vg, x, direction, v, g):
+        return zoom_linesearch(vg, x, direction, v, g, counts)
+
+    return _lbfgs_steps(value_and_grad, linesearch, x, _lbfgs_init(x), max_steps, torch.dot,
+                        torch.sum)
+
+
+def lbfgs_solve_batched(objective, X0, max_steps: int = 60, counts=None):
+    """``jax.vmap(lbfgs_solve)`` over the rows of ``X0`` (N, d), for a
+    row-separable ``objective``: (N, d) → (N,), row i a function of row i
+    alone. Every row runs optax L-BFGS as :func:`lbfgs_solve` does, with its
+    own memory, preconditioner scale and linesearch
+    (:func:`zoom_linesearch_rows`); all rows take ``max_steps`` steps, and a
+    row whose iterate is not finite keeps its point. One evaluation of the
+    objective serves all rows at each linesearch iteration. Returns (X, the
+    values (max_steps, N) at each step's start). ``counts`` as in
+    :func:`lbfgs_solve` (no graph captures: the evaluation runs eagerly)."""
+    x = X0.detach().clone()
+
+    def value_and_grad(X):
+        th = X.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = objective(th)
+            # the gradient of the sum is each row's own
+            (g,) = torch.autograd.grad(v.sum(), th)
+        _add(counts, "evaluations")
+        return v.detach().unsqueeze(-1), g
+
+    def linesearch(vg, x, direction, v, g):
+        return zoom_linesearch_rows(vg, x, direction, v, g, counts)
+
+    x, values = _lbfgs_steps(value_and_grad, linesearch, x, _lbfgs_init(x, (x.shape[0], 1)),
+                             max_steps, _rowdot, _rowsum)
+    return x, values[..., 0]
 
 
 # ---------------------------------------------------------------------------

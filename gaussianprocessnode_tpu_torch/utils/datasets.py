@@ -1,6 +1,6 @@
 """Dataset loaders and synthetic-data generators (L7 layer): the toy
-workloads, kin40k and banana, and the pendulum GPSSM's data and inducing
-grid.
+workloads, kin40k, banana and the GPLVM's oil-flow data, and the pendulum
+GPSSM's data and inducing grid.
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -15,7 +15,8 @@ import numpy as np
 
 __all__ = ["REFERENCE_ROOT", "Dataset", "toy_sinc", "toy_classification",
            "toy_sinc_reference", "toy_classification_reference", "split2batch", "kin40k",
-           "kin40k_synthetic", "banana", "banana_synthetic", "pendulum", "pendulum_inducing"]
+           "kin40k_synthetic", "banana", "banana_synthetic", "oil_flow", "oil_flow_synthetic",
+           "pendulum", "pendulum_inducing"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -187,6 +188,46 @@ def banana_synthetic(seed: int = 1, n_train: int = 4000, n_test: int = 1300):
     mu, sd = x[:n_train].mean(axis=0), x[:n_train].std(axis=0)
     x = (x - mu) / sd
     return Dataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])
+
+
+def oil_flow(root: str = REFERENCE_ROOT, n: int = 200):
+    """3PhData oil-flow for GPLVM: the first ``n`` rows of 12-D outputs and
+    their 3-class labels (reference: GPLVM.ipynb cells 4-6). Raises
+    FileNotFoundError when the files are absent."""
+    d = os.path.join(root, "3PhData")
+    data = np.loadtxt(os.path.join(d, "DataTrn.txt"))[:n]
+    labels = np.loadtxt(os.path.join(d, "DataTrnLbls.txt"))[:n]
+    return data, labels.argmax(axis=1)
+
+
+# the synthetic oil-flow map: latent spread per class and the frequency
+# scale of the 2-D → 12-D map, chosen so that PCA mixes the classes
+_OIL_SPREAD = 0.35
+_OIL_FREQ = 2.5
+_OIL_NOISE = 0.05
+
+
+def oil_flow_synthetic(seed: int = 0, n: int = 200):
+    """Data of 3PhData's shape, for where the oil-flow files are absent:
+    ``n`` rows of 12-D outputs and labels in {0, 1, 2}.
+
+    Labels cycle 0, 1, 2 before one shuffle (the classes are equal to
+    within one row). Each row's 2-D latent is its class centre on the unit
+    circle (angles 0, 2π/3, 4π/3) plus isotropic Gaussian noise of
+    standard deviation 0.35, so the classes are near-separable in the
+    plane. A fixed nonlinear map, y = sin(zA + b) with A (2, 12) Gaussian
+    of scale 2.5 and b uniform phases, folds the plane into 12-D, and
+    N(0, 0.05²) noise is added: the 2-D PCA projection then mixes the
+    classes (1-NN accuracy ~0.8) where the latents separate them (~0.97).
+    All draws, the map's included, come from ``seed``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.permutation(np.arange(n) % 3)
+    ang = 2.0 * np.pi * labels / 3.0
+    z = np.stack([np.cos(ang), np.sin(ang)], axis=1) + _OIL_SPREAD * rng.standard_normal((n, 2))
+    A = _OIL_FREQ * rng.standard_normal((2, 12))
+    b = rng.uniform(0.0, 2.0 * np.pi, 12)
+    Y = np.sin(z @ A + b) + _OIL_NOISE * rng.standard_normal((n, 12))
+    return Y, labels
 
 
 def pendulum(n: int = 700, max_time: float = 7.0, qc: float = 0.01, obs_var: float = 0.1,

@@ -1,7 +1,8 @@
 """The port's CUDA kernel, its route, and the serving and training paths
 (kin40k regression, banana classification, the toy workloads, the VSGP
 collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
-its streaming filter and the associative scan) on a CUDA card.
+its streaming filter and the associative scan, the GPLVM sweep) on a CUDA
+card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -651,3 +652,73 @@ def test_associative_scan_on_card_matches_a_sequential_fold(reverse):
         want = np.stack([f[i] for f in fold])
         got = out[i].cpu().numpy()
         assert np.max(np.abs(got - want)) <= 1e-11 * np.max(np.abs(want))
+
+
+def _gplvm_setup(device, dtype):
+    """The GPLVM runner's inputs at full width (N = 200, D = 12, Din = 2, M =
+    30; synthetic oil-flow data of seed 0) on ``device``."""
+    from gaussianprocessnode_tpu_torch.experiments import gplvm as runner
+
+    Y, _ = runner.load_data("synthetic", 0)
+    _, theta0, Xu, Y, Xm, _ = runner.setup(Y, device=device, dtype=dtype)
+    return theta0, Xu, Y, Xm
+
+
+@pytest.mark.gpu
+def test_gplvm_psi_statistics_float32_through_the_kernel_on_card():
+    """The GPLVM sweep's Ψ-statistics at 30×800×2 (the 200 cold marginals'
+    spherical-radial points): one launch, Ψ1 within the Gram's f32 bound
+    (the weights sum to 1) and ΣΨ2 within N·(2σ²·bound) plus both GEMMs'
+    rounding; Ψ0 takes no Gram."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops import psi as psiops
+    from gaussianprocessnode_tpu_torch.ops import quadrature as quad
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    theta, Xu, _, Xm = _gplvm_setup("cuda", torch.float32)
+    covs = torch.eye(2, device="cuda").expand(200, 2, 2)
+    sr = quad.SphericalRadial()
+    ones = torch.ones(200, device="cuda")
+    out = {}
+    for use_kernel in (True, False):
+        k = Kernel("se", "softplus", use_kernel=use_kernel)
+        before = sg.se_gram_cuda.launches
+        p0, p1, Kp, w = psiops.psi_batch_expected_multi(k, theta, Xu, sr, Xm, covs)
+        assert sg.se_gram_cuda.launches == before + (1 if use_kernel else 0)
+        out[use_kernel] = (p0, p1, psiops.sum_weighted_psi2(Kp, w, ones))
+    var, ls = Kernel("se", "softplus").params(theta)
+    pts, _ = quad.points_weights_multi(sr, Xm, covs)
+    tol = _gram_tol(Xu.cpu().numpy(), pts.reshape(-1, 2).cpu().numpy(), float(var),
+                    ls.cpu().numpy())
+    v = float(var)
+    (k0, k1, k2), (q0, q1, q2) = out[True], out[False]
+    assert torch.equal(k0, q0)
+    assert float((k1 - q1).abs().max()) <= tol + 8 * EPS32 * v
+    assert float((k2 - q2).abs().max()) <= 200 * (2 * v * tol + tol ** 2) + 2 * 800 * EPS32 * 200 * v * v
+
+
+@pytest.mark.gpu
+def test_gplvm_float64_sweep_on_card_matches_cpu():
+    """One cold float64 ``gplvm_vmp`` sweep at full width, card against
+    host: the q(v) naturals (no Laplace step before them) to 1e-12; the
+    latents, whose Laplace in-message carries Kuu⁻¹ at the 1e-12 jitter,
+    to 1e-4 (means, absolute) and 3e-3 (covariances), the free energy to
+    2e-6: ten times what one float64 ulp of the Gram alone moves them on
+    the host (seeds 0 and 1: 7.2e-6, 2.4e-4, 1.8e-7). No kernel launches."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_vmp
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    k = Kernel("se", "softplus", use_kernel=True)
+    before = sg.se_gram_cuda.launches
+    card, fe_card = gplvm_vmp(k, *_gplvm_setup("cuda", torch.float64), n_iters=1)
+    assert sg.se_gram_cuda.launches == before
+    host, fe_host = gplvm_vmp(k, *_gplvm_setup("cpu", torch.float64), n_iters=1)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    assert rel(card.xi_v, host.xi_v) <= 1e-12 and rel(card.prec_v, host.prec_v) <= 1e-12
+    assert float((card.x_means.cpu() - host.x_means).abs().max()) <= 1e-4
+    assert rel(card.x_covs, host.x_covs) <= 3e-3
+    assert abs(float(fe_card) - float(fe_host)) <= 2e-6 * abs(float(fe_host))

@@ -103,3 +103,28 @@ def test_q_v_resets_each_epoch():
     for _ in range(2):
         th, nat, carry = tmb.fit_kin40k(**ta, epochs=1, resume_state=carry)
     assert torch.equal(th, th3) and torch.equal(nat.prec, nat3.prec)
+
+
+def test_ns_budget_matches_jax():
+    """``ns_budget`` sets both Newton–Schulz counts (the objective's Kuu⁻¹
+    and the per-batch q(v) refresh), as in the JAX trainer: 2 epochs at
+    budget 20 in float64 agree to the f64 bound of the default budget's
+    test above (1e-8: κ(Λ)·ε₆₄). Warm-started, budgets 20 and 34 both reach
+    the f64 floor; a budget of 3 does not, and its q(v) inverse differs by
+    far more than the parity error (the count reaches the result)."""
+    c = trainer_case(np.float64)
+    ja = dict(kernel=JKernel("se", "softplus", use_pallas=True),
+              theta0=jnp.asarray(c["theta0"]), Xu=jnp.asarray(c["Xu"]),
+              X_batched=jnp.asarray(c["Xb"]), y_batched=jnp.asarray(c["yb"]),
+              prior_v=JNat(jnp.asarray(c["xi0"]), jnp.asarray(c["prec0"])), w_val=W)
+    ta = dict(kernel=Kernel("se", "softplus", use_kernel=True),
+              theta0=torch.as_tensor(c["theta0"]), Xu=torch.as_tensor(c["Xu"]),
+              X_batched=torch.as_tensor(c["Xb"]), y_batched=torch.as_tensor(c["yb"]),
+              prior_v=MvGaussianNat(torch.as_tensor(c["xi0"]), torch.as_tensor(c["prec0"])),
+              w_val=W)
+    _, _, jcarry = jmb.fit_kin40k(**ja, epochs=2, ns_budget=20)
+    _, _, tcarry = tmb.fit_kin40k(**ta, epochs=2, ns_budget=20)
+    _, _, tshort = tmb.fit_kin40k(**ta, epochs=2, ns_budget=3)
+    errs = {f: _rel(getattr(tcarry, f).numpy(), getattr(jcarry, f)) for f in FIELDS}
+    assert max(errs.values()) <= 1e-8, errs
+    assert _rel(tshort.cov_v.numpy(), tcarry.cov_v.numpy()) > 1e3 * errs["cov_v"]

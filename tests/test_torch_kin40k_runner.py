@@ -74,3 +74,14 @@ def test_runner_defaults_to_the_card():
         pytest.skip("a card is present: the default device works")
     with pytest.raises((RuntimeError, AssertionError)):
         runner.run(epochs=1, m_inducing=8, batch_size=50, n_train=100, n_test=10)
+
+
+def test_faithful_runner_takes_the_budget_and_its_cadence():
+    """The faithful path's chunk follows the JAX runner's cadence
+    max(10, ⌊50·34/budget⌋); chunked resumes give the bits of one call."""
+    assert [runner.faithful_chunk(b) for b in (34, 60, 20, 400)] == [50, 28, 85, 10]
+    kw = dict(m_inducing=16, batch_size=50, n_train=200, n_test=50, device="cpu",
+              faithful=True)
+    short = runner.run(epochs=2, ns_budget=20, **kw)
+    assert short["ns_budget"] == 20 and short["trainer"] == "fit_kin40k"
+    assert math.isfinite(short["smse"])
