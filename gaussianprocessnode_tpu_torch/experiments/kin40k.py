@@ -11,9 +11,7 @@ does, in float64, whose Grams take the plain route by dtype
 (``ops/se_gram.py::se_gram_auto``); ``run(faithful=True,
 dtype=torch.float32)`` keeps it in float32, through the kernel.
 ``--ns-budget`` sets the faithful trainer's Newton–Schulz count (34 by
-default), and the faithful run goes in chunks of max(10, ⌊50·34/budget⌋)
-epochs, each resuming the last one's carry: the JAX runner's snapshot
-cadence.
+default).
 
     python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful [--ns-budget 60]]
 
@@ -43,7 +41,7 @@ from ..utils.datasets import kin40k, kin40k_synthetic
 from ..utils.metrics import smse
 from ..utils.profiling import card_info, synchronize
 
-__all__ = ["W_VAL", "load_data", "setup", "faithful_chunk", "run"]
+__all__ = ["W_VAL", "load_data", "setup", "run"]
 
 W_VAL = 1e4  # kin40k's fixed noise precision
 
@@ -92,23 +90,15 @@ def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
     return mean
 
 
-def faithful_chunk(ns_budget: int) -> int:
-    """Epochs per chunk of the faithful run: the JAX runner's snapshot
-    cadence, 50 epochs at the production budget of 34 iterations, scaled
-    down for larger budgets, never below 10."""
-    return max(10, int(50 * KIN40K_BATCH_NS_ITERS / ns_budget))
-
-
 def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
         data: str = "synthetic", device: str = "cuda", faithful: bool = False,
         dtype=None, ns_budget: int = KIN40K_BATCH_NS_ITERS) -> dict:
     """Train θ for ``epochs`` epochs (learning rate 1e-3) with
     ``fit_kin40k_fast`` (one statistics refresh per epoch) or, with
-    ``faithful``, ``fit_kin40k`` at ``ns_budget`` in chunks of
-    :func:`faithful_chunk` epochs, and score the test set. ``dtype``
-    defaults to float32, and to float64 with ``faithful``. Returns the
-    result dict that the command line prints."""
+    ``faithful``, ``fit_kin40k`` at ``ns_budget``, and score the test set.
+    ``dtype`` defaults to float32, and to float64 with ``faithful``.
+    Returns the result dict that the command line prints."""
     dev = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if faithful else torch.float32
@@ -124,12 +114,8 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
     se_gram_cuda.launches = 0
     t0 = time.perf_counter()
     if faithful:
-        carry, done = None, 0
-        while done < epochs:
-            n = min(faithful_chunk(ns_budget), epochs - done)
-            theta, qv_nat, carry = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, n,
-                                              resume_state=carry, ns_budget=ns_budget)
-            done += n
+        theta, qv_nat, _ = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, epochs,
+                                      ns_budget=ns_budget)
         cov64 = None
     else:
         theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,

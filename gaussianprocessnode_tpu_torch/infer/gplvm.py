@@ -244,14 +244,17 @@ def gplvm_init_state(kernel, theta, Xu, Y, x_prior_means) -> GPLVMState:
     exactly what :func:`gplvm_vmp` and :func:`fit_gplvm_grad` build when
     ``init_state`` is omitted. The q(v) naturals are f64 in every mode
     (κ(Λ_v) ≈ 1e10 puts B's small eigenvalues below f32's resolution)."""
+    return _cold_state(_kuu_ssm(kernel, theta, Xu).to(_F64), Y, x_prior_means)
+
+
+def _cold_state(Kuu64, Y, x_prior_means) -> GPLVMState:
+    """:func:`gplvm_init_state` from the f64 Kuu(θ) already at hand."""
     N, D = Y.shape
     Din = x_prior_means.shape[1]
-    M = Xu.shape[0]
-    Kuu64 = _kuu_ssm(kernel, theta, Xu).to(_F64)
     return GPLVMState(
         x_prior_means,
         _eye(Din, Y.dtype, Y.device).expand(N, Din, Din).clone(),
-        torch.zeros(M * D, dtype=_F64, device=Y.device),
+        torch.zeros(Kuu64.shape[0] * D, dtype=_F64, device=Y.device),
         torch.kron(_eye(D, _F64, Y.device), Kuu64),
     )
 
@@ -270,22 +273,17 @@ def gplvm_vmp(kernel, theta, Xu, Y, x_prior_means, x_prior_cov_scale: float = 10
     current mean."""
     N, D = Y.shape
     Din = x_prior_means.shape[1]
-    M = Xu.shape[0]
     dt, dev = Y.dtype, Y.device
     sr = quad.SphericalRadial()
     with torch.no_grad():
-        Kuu64 = _kuu_ssm(kernel, theta, Xu).to(_F64)
-        prior_prec_v = torch.kron(_eye(D, _F64, dev), Kuu64)
-        prior_xi_v = torch.zeros(M * D, dtype=_F64, device=dev)
+        cold = _cold_state(_kuu_ssm(kernel, theta, Xu).to(_F64), Y, x_prior_means)
+        prior_xi_v, prior_prec_v = cold.xi_v, cold.prec_v
         W = W_val * _eye(D, dt, dev)
         x_prior_prec = _eye(Din, dt, dev) / x_prior_cov_scale
         x_prior_xi = x_prior_means / x_prior_cov_scale
         ones = torch.ones(N, dtype=dt, device=dev)
 
-        state = init_state
-        if state is None:  # == gplvm_init_state(kernel, theta, Xu, Y, x_prior_means)
-            state = GPLVMState(x_prior_means, _eye(Din, dt, dev).expand(N, Din, Din).clone(),
-                               prior_xi_v, prior_prec_v)
+        state = cold if init_state is None else init_state
         for _ in range(n_iters):
             # 1. q(v) from the current latent marginals; the data sums in
             # the model dtype, the accumulated naturals in f64

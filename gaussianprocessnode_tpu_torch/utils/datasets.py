@@ -211,22 +211,26 @@ def oil_flow_synthetic(seed: int = 0, n: int = 200):
     """Data of 3PhData's shape, for where the oil-flow files are absent:
     ``n`` rows of 12-D outputs and labels in {0, 1, 2}.
 
-    Labels cycle 0, 1, 2 before one shuffle (the classes are equal to
-    within one row). Each row's 2-D latent is its class centre on the unit
-    circle (angles 0, 2π/3, 4π/3) plus isotropic Gaussian noise of
-    standard deviation 0.35, so the classes are near-separable in the
-    plane. A fixed nonlinear map, y = sin(zA + b) with A (2, 12) Gaussian
-    of scale 2.5 and b uniform phases, folds the plane into 12-D, and
-    N(0, 0.05²) noise is added: the 2-D PCA projection then mixes the
-    classes (1-NN accuracy ~0.8) where the latents separate them (~0.97).
-    All draws, the map's included, come from ``seed``."""
-    rng = np.random.default_rng(seed)
-    labels = rng.permutation(np.arange(n) % 3)
+    Each run of three rows holds the three labels in a random order (the
+    classes are equal to within one row). Each row's 2-D latent is its
+    class centre on the unit circle (angles 0, 2π/3, 4π/3) plus isotropic
+    Gaussian noise of standard deviation 0.35, so the classes are
+    near-separable in the plane. A fixed nonlinear map, y = sin(zA + b)
+    with A (2, 12) Gaussian of scale 2.5 and b uniform phases, folds the
+    plane into 12-D, and N(0, 0.05²) noise is added: the 2-D PCA
+    projection then mixes the classes where the latents separate them.
+    All draws, the map's included, come from ``seed``: the map from one
+    stream, the labels, latents and noise from three more, row by row, so
+    that the first ``k`` rows of a longer draw are the draw of ``k`` rows
+    (rows past the runner's 200 are held-out rows of the same data)."""
+    maps, lab, lat, noise = (np.random.default_rng(s)
+                             for s in np.random.SeedSequence(seed).spawn(4))
+    A = _OIL_FREQ * maps.standard_normal((2, 12))
+    b = maps.uniform(0.0, 2.0 * np.pi, 12)
+    labels = np.argsort(lab.random((-(-n // 3), 3)), axis=1).reshape(-1)[:n]
     ang = 2.0 * np.pi * labels / 3.0
-    z = np.stack([np.cos(ang), np.sin(ang)], axis=1) + _OIL_SPREAD * rng.standard_normal((n, 2))
-    A = _OIL_FREQ * rng.standard_normal((2, 12))
-    b = rng.uniform(0.0, 2.0 * np.pi, 12)
-    Y = np.sin(z @ A + b) + _OIL_NOISE * rng.standard_normal((n, 12))
+    z = np.stack([np.cos(ang), np.sin(ang)], axis=1) + _OIL_SPREAD * lat.standard_normal((n, 2))
+    Y = np.sin(z @ A + b) + _OIL_NOISE * noise.standard_normal((n, 12))
     return Y, labels
 
 

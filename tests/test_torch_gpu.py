@@ -703,8 +703,9 @@ def test_gplvm_float64_sweep_on_card_matches_cpu():
     host: the q(v) naturals (no Laplace step before them) to 1e-12; the
     latents, whose Laplace in-message carries Kuu⁻¹ at the 1e-12 jitter,
     to 1e-4 (means, absolute) and 3e-3 (covariances), the free energy to
-    2e-6: ten times what one float64 ulp of the Gram alone moves them on
-    the host (seeds 0 and 1: 7.2e-6, 2.4e-4, 1.8e-7). No kernel launches."""
+    2e-6: ten times and more what one float64 ulp of the Gram alone moves
+    them on the host (``scripts/gplvm_rounding_twin.py --one-sweep``, seeds
+    0-2: ≤ 1.9e-7, 1.1e-5, 1.4e-9). No kernel launches."""
     _need_card()
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel

@@ -76,12 +76,22 @@ def test_runner_defaults_to_the_card():
         runner.run(epochs=1, m_inducing=8, batch_size=50, n_train=100, n_test=10)
 
 
-def test_faithful_runner_takes_the_budget_and_its_cadence():
-    """The faithful path's chunk follows the JAX runner's cadence
-    max(10, ⌊50·34/budget⌋); chunked resumes give the bits of one call."""
-    assert [runner.faithful_chunk(b) for b in (34, 60, 20, 400)] == [50, 28, 85, 10]
+def test_faithful_runner_takes_the_budget(monkeypatch):
+    """The faithful path hands ``ns_budget`` to ``fit_kin40k`` and trains
+    its epochs in one call (the JAX runner's chunks only bound the length
+    of one device dispatch and the snapshot cadence; the port writes no
+    snapshots)."""
+    calls = []
+    fit = runner.fit_kin40k
+
+    def recording_fit(*args, **kwargs):
+        calls.append((args[7], kwargs))
+        return fit(*args, **kwargs)
+
+    monkeypatch.setattr(runner, "fit_kin40k", recording_fit)
     kw = dict(m_inducing=16, batch_size=50, n_train=200, n_test=50, device="cpu",
               faithful=True)
     short = runner.run(epochs=2, ns_budget=20, **kw)
+    assert calls == [(2, {"ns_budget": 20})]
     assert short["ns_budget"] == 20 and short["trainer"] == "fit_kin40k"
     assert math.isfinite(short["smse"])
