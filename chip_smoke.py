@@ -42,7 +42,12 @@ width (N = 200, D = 12, Din = 2, M = 30, synthetic oil-flow data from
 host, held to each other, the embedding of the training rows (a fixed
 point) and of 40 held-out rows, the float32 Ψ-statistics and one sweep
 through the kernel against the plain Gram, and each model front-end class
-against its direct call. It prints
+against its direct call; and runs the legacy-notebook families in float64
+(the main path: padscale's sequential and parallel-in-time smoothers at
+T = 2^17, held to each other by the JAX runner's cross-check; the parallel
+smoother at T = 2^13 and the runner's tprocess, sde, fullcov, pad, pad2,
+control and a cut padlearn on the card against the host; a profiled
+smoother call and colored-EM epoch; no kernel launches). It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -136,7 +141,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/13 device: start")
+    say("phase 1/14 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -150,12 +155,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/13 device: done")
+    say("phase 1/14 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/13 build: start")
+    say("phase 2/14 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -165,7 +170,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/13 build: done")
+    say("phase 2/14 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -196,7 +201,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/13 kernel vs plain: start")
+    say("phase 3/14 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -272,12 +277,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/13 kernel vs plain: done")
+    say("phase 3/14 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/13 serving: start")
+    say("phase 4/14 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -348,7 +353,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/13 serving: done")
+    say("phase 4/14 serving: done")
     return handle, X, launches
 
 
@@ -424,7 +429,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/13 times: start")
+    say("phase 5/14 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -442,7 +447,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/13 times: done")
+    say("phase 5/14 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -517,7 +522,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/13 training: start")
+    say("phase 6/14 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -620,7 +625,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/13 training: done")
+    say("phase 6/14 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -689,7 +694,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/13 banana training: start")
+    say("phase 7/14 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -858,7 +863,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/13 banana training: done")
+    say("phase 7/14 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -888,7 +893,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/13 classifier serving: start")
+    say("phase 8/14 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -989,7 +994,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/13 classifier serving: done")
+    say("phase 8/14 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1054,7 +1059,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/13 toy workloads: start")
+    say("phase 9/14 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1195,7 +1200,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/13 toy workloads: done")
+    say("phase 9/14 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1252,7 +1257,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/13 VSGP and FITC baselines: start")
+    say("phase 10/14 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1451,7 +1456,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/13 VSGP and FITC baselines: done")
+    say("phase 10/14 VSGP and FITC baselines: done")
     return out
 
 
@@ -1513,7 +1518,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/13 MultiSGP node and M-step objective: start")
+    say("phase 11/14 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1646,7 +1651,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/13 MultiSGP node and M-step objective: done")
+    say("phase 11/14 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -1945,7 +1950,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/13 GPSSM family: start")
+    say("phase 12/14 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2096,7 +2101,7 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/13 GPSSM family: done")
+    say("phase 12/14 GPSSM family: done")
     return out
 
 # the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
@@ -2321,7 +2326,7 @@ def phase_gplvm(seed, card):
       just before; the two GPLVM Gram shapes held to plain and timed;
     - each ``infer/model.py`` class's ``infer`` bit for bit against its
       direct call on the card."""
-    say("phase 13/13 GPLVM and the model front-end: start")
+    say("phase 13/14 GPLVM and the model front-end: start")
     from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -2436,7 +2441,177 @@ def phase_gplvm(seed, card):
     check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
     out["front_end_equal"] = same
     out["launches_by_path"] = {"gplvm_f32_sweep": l32}
-    say("phase 13/13 GPLVM and the model front-end: done")
+    say("phase 13/14 GPLVM and the model front-end: done")
+    return out
+
+
+# the legacy-GP families (experiments/legacy_gp.py), float64 throughout:
+# the SDE GP's Matérn-5/2 chain, the t-process, the full-covariance GP,
+# GP-PAD, the learning layer and the controlled GPSSM. No workload reaches
+# the float32 SE Gram kernel (Matérn Grams and float64 SE Grams take the
+# plain route by dtype), so this phase counts 0 launches.
+LEGACY_SCALE_T = 1 << 17         # padscale's audio-scale chain, both modes
+LEGACY_SCALE_REPS = 1            # timed calls per mode after the first
+LEGACY_PAR_T = 1 << 13           # parallel smoother, card against host
+LEGACY_PAR_RTOL = 1e-9
+# padlearn's cut (the runner's configuration is 6 Bayesian sweeps of 21
+# EP chains, 30 EP-EM epochs, the 3-model bank and 12 colored-EM epochs of
+# 150 warm E-sweeps and 60 adjoint sweep-VJPs of two T = 400 chains; one
+# full colored epoch took 126 s on an H100 80GB HBM3 at 700 W): 5 EP-EM
+# epochs and one colored epoch of 30 E-sweeps and 12 adjoint VJPs, the
+# Bayesian posterior and the bank uncut
+LEGACY_PADLEARN_CUT = {"em_epochs": 5, "colored_epochs": 1, "colored_ep_iters": 30,
+                       "adjoint_iters": 12}
+# float64 card against host, figure by figure (``_legacy_rel``).
+# cuBLAS/cuSOLVER and the host's BLAS/LAPACK round in other orders; the
+# EP, AdaMax and L-BFGS loops carry that rounding through their
+# iterations, and the full-covariance GP's θ-grid reaches Grams of κ ≈ 1e10
+# (tests/test_torch_tprocess_fullcov.py). On an H100 80GB HBM3 at 700 W
+# the readings were tprocess 4.4e-15, sde 8.4e-15, fullcov 7.3e-9, pad
+# 2.2e-9, pad2 5.4e-14, control 1.3e-12, padlearn 2.0e-11 (one colored
+# epoch of full depth); the limits are ~100× those (1e-12 at least)
+LEGACY_RTOL = {"tprocess": 1e-12, "sde": 1e-12, "fullcov": 1e-6, "pad": 2e-7, "pad2": 1e-11,
+               "control": 1e-10, "padlearn": 2e-9}
+
+
+def _figures(res) -> np.ndarray:
+    """The numbers of a workload's result dict, flattened: seconds, the
+    configuration and the rounding-level diagnostics (``*_max_abs``: a
+    smoother against the dense GP, sequential against parallel) left out."""
+    out = []
+    for k, v in res.items():
+        if k == "config" or "seconds" in k or k.endswith("_max_abs"):
+            continue
+        if isinstance(v, bool):
+            v = float(v)
+        if isinstance(v, (int, float)):
+            out.append(float(v))
+        elif isinstance(v, list):
+            out.extend(float(x) for x in v)
+    return np.asarray(out)
+
+
+def _legacy_rel(a, b) -> float:
+    """The largest figure-by-figure difference, relative to the figure
+    (figures below 1e-6 in magnitude, such as a responsibility of 1e-30,
+    relative to 1e-6)."""
+    fa, fb = _figures(a), _figures(b)
+    return float(np.max(np.abs(fa - fb) / np.maximum(np.abs(fb), 1e-6)))
+
+
+def phase_legacy(card):
+    """The legacy-GP families at the runner's configurations, float64:
+
+    - the main path: ``padscale`` at T = 2^17, the sequential and the
+      parallel-in-time smoother on the card (a first call, then
+      LEGACY_SCALE_REPS timed call each), held to the JAX runner's
+      cross-check (max |Δmean_head| < 1e-6, |Δlog_lik| < 1e-5·max(1,
+      |log_lik|)); the SE Gram's count set to 0 just before and read just
+      after: 0 launches, and 0 in the rest of the phase;
+    - first, the parallel and the sequential smoother at T = 2^13 on the
+      card against the host (LEGACY_PAR_RTOL);
+    - tprocess, sde, fullcov, pad, pad2 and control at the runner's
+      configurations on the card and on the host, held to each other
+      (LEGACY_RTOL);
+    - padlearn at the runner's configuration but LEGACY_PADLEARN_CUT, on
+      the card and on the host;
+    - a profiled sequential smoother call (T = 400) and a profiled
+      colored-EM epoch at reduced depth (4 E-sweeps, 2 adjoint VJPs)."""
+    say("phase 14/14 legacy GP families: start")
+    from gaussianprocessnode_tpu_torch.experiments import legacy_gp as lg
+    from gaussianprocessnode_tpu_torch.infer.pad_learn import fit_gppad_colored_theta
+    from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_smooth
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+
+    out = {}
+    before = se_gram_cuda.launches
+
+    # the smoothers at 2^13, card against host (these calls also warm the card up)
+    def smooth(dev, parallel):
+        t, z, mask, r = (torch.as_tensor(a, device=dev) for a in lg.padscale_data(LEGACY_PAR_T))
+        res = sde_gp_smooth(torch.tensor([1.0, 0.9], dtype=torch.float64, device=dev), t, z,
+                            mask, r, parallel=parallel)
+        return torch.cat([res.mean, res.var, res.log_lik.reshape(1)]).cpu()
+
+    pair = {mode: _relmax(smooth("cuda", mode == "parallel"), smooth("cpu", mode == "parallel"))
+            for mode in ("sequential", "parallel")}
+    print(f"smoother T={LEGACY_PAR_T} float64 card vs host: parallel {pair['parallel']:.3e} "
+          f"(limit {LEGACY_PAR_RTOL:.0e}), sequential {pair['sequential']:.3e} [{card}]",
+          flush=True)
+    check(pair["parallel"] <= LEGACY_PAR_RTOL and pair["sequential"] <= LEGACY_PAR_RTOL,
+          "smoother: card and host disagree")
+    out["smoother_card_vs_host"] = pair
+
+    # the main path: padscale at 2^17, both modes, its launches counted
+    pre = se_gram_cuda.launches - before
+    se_gram_cuda.launches = 0
+    row = {"T": LEGACY_SCALE_T}
+    for mode in ("sequential", "parallel"):
+        row[mode] = lg.run_padscale_one(LEGACY_SCALE_T, mode == "parallel",
+                                        reps=LEGACY_SCALE_REPS, device="cuda")
+    main_launches = se_gram_cuda.launches
+    row.update(lg.crosscheck(row))
+    seq, par = row["sequential"], row["parallel"]
+    print(f"padscale T={LEGACY_SCALE_T}: sequential {seq['warm_ms']:.1f} ms (first call "
+          f"{seq['first_call_s']:.2f} s), parallel {par['warm_ms']:.2f} ms (first call "
+          f"{par['first_call_s']:.2f} s), speedup {row['speedup']:.1f}x; cross-check "
+          f"{row['crosscheck']}: max|dmean_head| {row['crosscheck_dmean']:.3e}, |dlog_lik| "
+          f"{row['crosscheck_dll']:.3e} (log_lik {seq['log_lik']:.6f}) [{card}]", flush=True)
+    check(row["crosscheck"] == "ok", "padscale: the sequential and parallel smoothers disagree")
+    check(all(np.isfinite(r["log_lik"]) and np.all(np.isfinite(r["mean_head"]))
+              for r in (seq, par)), "padscale: non-finite smoother output")
+    out["padscale"] = row
+
+    # the runner's workloads, card against host
+    runs = {}
+    for name in ("tprocess", "sde", "fullcov", "pad", "pad2", "control", "padlearn"):
+        kw = dict(LEGACY_PADLEARN_CUT) if name == "padlearn" else {}
+        fn = lg.WORKLOADS[name]
+        a = fn(verbose=False, device="cuda", **kw)
+        b = fn(verbose=False, device="cpu", **kw)
+        d = _legacy_rel(a, b)
+        runs[name] = {"card": a, "host": b, "rel": d}
+        figures = {k: v for k, v in a.items() if k != "config"}
+        print(f"legacy {name}{' (cut: ' + json.dumps(kw) + ')' if kw else ''}: card "
+              f"{a['seconds']:.2f} s, host {b['seconds']:.2f} s, card vs host {d:.3e} (limit "
+              f"{LEGACY_RTOL[name]:.0e}); card figures {json.dumps(figures)} [{card}]",
+              flush=True)
+        check(np.all(np.isfinite(_figures(a))), f"legacy {name}: non-finite figures on the card")
+        check(d <= LEGACY_RTOL[name], f"legacy {name}: card and host disagree ({d:.3e})")
+    out["workloads"] = runs
+
+    # where the time goes: one sequential smoother call, one reduced colored-EM epoch
+    t, z, mask, r = (torch.as_tensor(a, device="cuda") for a in lg.padscale_data(400))
+    th = torch.tensor([1.0, 0.9], dtype=torch.float64, device="cuda")
+    host_ms, queue_ms = eager_ms(lambda: sde_gp_smooth(th, t, z, mask, r), 3)
+    prof = profile_epoch(lambda: sde_gp_smooth(th, t, z, mask, r),
+                         "sequential smoother T=400 float64", card)
+    print(f"sequential smoother T=400: eager {host_ms:.2f} ms host clock (queued in "
+          f"{queue_ms:.2f} ms) [{card}]", flush=True)
+    t2, y2 = (torch.as_tensor(a, device="cuda") for a in lg.padlearn_colored_data())
+    ell0 = torch.tensor([0.3, 0.1], dtype=torch.float64, device="cuda")
+
+    def epoch():
+        return fit_gppad_colored_theta(t2, y2, ell0, var_f=0.4, var_c=1.0, epochs=1,
+                                       ep_iters=4, adjoint_iters=2)
+
+    ep_ms, _ = eager_ms(epoch, 1)
+    prof_ep = profile_epoch(epoch, "colored-EM epoch T=400 (4 E-sweeps, 2 adjoint VJPs)", card)
+    print(f"colored-EM epoch at reduced depth: eager {ep_ms:.1f} ms host clock [{card}]",
+          flush=True)
+    out["profile"] = {"smoother_T400": {"eager_host_ms": host_ms, "queue_ms": queue_ms,
+                                        "profile": prof},
+                      "colored_epoch_4_2": {"eager_host_ms": ep_ms, "profile": prof_ep}}
+
+    rest = pre + se_gram_cuda.launches - main_launches
+    se_gram_cuda.launches += before + pre
+    print(f"legacy GP families: SE Gram launches {main_launches} in padscale, {rest} in the "
+          f"rest of the phase (float64 and Matern take the plain route)", flush=True)
+    check(main_launches == 0 and rest == 0,
+          "the legacy families launched the float32 SE Gram kernel")
+    out["launches"] = main_launches + rest
+    out["launches_by_path"] = {"legacy_padscale": main_launches, "legacy_workloads": rest}
+    say("phase 14/14 legacy GP families: done")
     return out
 
 
@@ -2466,6 +2641,7 @@ def main(argv=None) -> int:
         multi = phase_multi(args.seed, card)
         gpssm = phase_gpssm(args.seed, card)
         gplvm = phase_gplvm(args.seed, card)
+        legacy = phase_legacy(card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -2483,7 +2659,7 @@ def main(argv=None) -> int:
                      + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
                      + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
-                     + gpssm["launches"] + gplvm["launches"]),
+                     + gpssm["launches"] + gplvm["launches"] + legacy["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -2497,7 +2673,8 @@ def main(argv=None) -> int:
                              "svgp_minibatch_f32": vsgp["svgp"]["launches"],
                              "fitc_f32": vsgp["fitc"]["launches"],
                              "multi_objective_f32": multi["objective"]["launches"],
-                             **gpssm["launches_by_path"], **gplvm["launches_by_path"]},
+                             **gpssm["launches_by_path"], **gplvm["launches_by_path"],
+                             **legacy["launches_by_path"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -2534,6 +2711,7 @@ def main(argv=None) -> int:
         "multi": {k: v for k, v in multi.items() if k != "shapes"},
         "gpssm": {k: v for k, v in gpssm.items() if k != "shapes"},
         "gplvm": {k: v for k, v in gplvm.items() if k != "shapes"},
+        "legacy_gp": legacy,
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -10,7 +10,8 @@ Ported so far (kin40k regression and banana probit classification, their
 trainers and serving paths; the toy regression and classification
 workloads with the UniSGP node, quadrature, Ψ-statistics, batch VMP and the
 L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node;
-the GPSSM family with the pendulum runner):
+the GPSSM family with the pendulum runner; the GPLVM and the model
+front-end; the legacy-notebook families with their runner):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussian / MvGaussianNat /
                            GammaShapeRate / Wishart / WishartFast /
@@ -22,7 +23,8 @@ the GPSSM family with the pendulum runner):
                            Newton–Schulz SPD inverse (with its VJP),
                            iterative refinement
     ops.quadrature         GH, SR, UT and GenUT rules, expectations, moment
-                           matching (one product or a batch), GenUT
+                           matching (one product or a batch, univariate
+                           and multivariate), GenUT
                            statistics and joint forms
     ops.scan               the associative (parallel prefix) scan
     ops.psi                exact and expected Ψ-statistics
@@ -49,19 +51,31 @@ the GPSSM family with the pendulum runner):
     infer.ut_smoother      the UT smoother with known dynamics
     infer.pit_gpssm        the parallel-in-time GPSSM engine
     infer.gpssm_control    the controlled GPSSM
+    infer.gplvm            the GPLVM (batched Laplace L-BFGS), its embedding
+    infer.model            the model front-end classes
+    infer.sde_gp           the Matérn-5/2 SDE GP: Kalman/RTS smoothing,
+                           sequential or parallel in time, and its NLML
+    infer.tprocess         the dense GP and the Student-t process posteriors
+    infer.fullcov_gp       the full-covariance GP with q(θ) and q(γ)
+    infer.gppad            GP-PAD, white and colored carrier (parallel EP)
+    infer.pad_learn        EP evidence, ELBOs, lengthscale posteriors, EP-EM
+                           and variational EM (implicit fixed-point
+                           gradient), model banks
     serve                  ``SGPRegressor``, ``SGPClassifier``, ``GPSSMFilter``,
                            ``serve_fused``, throughput timers
     convert                the JAX package's arrays → a serving handle, a
                            trainer carry, a batch VMP result, VSGP / FITC
                            parameters or their AdaMax state, a GPSSM or UT
-                           smoother state
-    utils.datasets         the toy, kin40k and banana loaders, synthetic
-                           data of their shapes, the pendulum data and its
-                           inducing grid
+                           smoother state, a GPLVM, GP-PAD or
+                           full-covariance GP state
+    utils.datasets         the toy, kin40k, banana, oil-flow, co2 and
+                           BTC-USD loaders, synthetic data of their
+                           shapes, the pendulum data and its inducing grid
     utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
-    utils.optim            bare optax AdaMax at Flux's defaults, scipy
-                           L-BFGS-B and Nelder–Mead over torch objectives
+    utils.optim            bare optax AdaMax at Flux's defaults, optax's
+                           Adam, scipy L-BFGS-B and Nelder–Mead over
+                           torch objectives
     experiments.kin40k     the kin40k training run on the card
     experiments.banana     the banana classification run on the card
     experiments.toy_regression, experiments.toy_classification
@@ -70,6 +84,8 @@ the GPSSM family with the pendulum runner):
                            the VSGP / FITC baseline runs (the collapsed
                            kin40k run on the card)
     experiments.pendulum   the pendulum GPSSM run on the card
+    experiments.gplvm      the GPLVM run on the card
+    experiments.legacy_gp  the legacy-notebook workloads on the card
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

@@ -21,7 +21,10 @@ smoother's state, so a JAX state warm-starts the port's engines and a
 trained JAX chain serves through the port's ``serve.GPSSMFilter``.
 :func:`gplvm_state_from_jax` carries a GPLVM mean-field state, so a JAX
 state warm-starts ``gplvm_vmp`` or ``fit_gplvm_grad``, or is embedded
-against by ``gplvm_embed``.
+against by ``gplvm_embed``. :func:`pad_state_from_jax` carries a GP-PAD
+state (white or colored carrier), whose sites warm-start ``gppad_infer``
+or ``gppad_colored_infer`` through ``sites0``; :func:`fullcov_state_from_jax`
+carries a full-covariance GP's mean-field state to ``fullcov_gp_predict``.
 """
 
 import numpy as np
@@ -31,6 +34,8 @@ from .dists import GammaShapeRate, Gaussian, MvGaussian, MvGaussianNat
 from .infer.batch_vmp import VMPResult
 from .infer.chain_smoother import GPSSMState
 from .infer.fitc import SparseGPParams
+from .infer.fullcov_gp import FullCovState
+from .infer.gppad import ColoredPADState, PADState
 from .infer.gplvm import GPLVMState
 from .infer.minibatch import FastCarry, MinibatchCarry
 from .infer.svgp import SVGPParams
@@ -41,7 +46,8 @@ from .serve import SGPClassifier, SGPRegressor
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
            "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
            "sparse_gp_params_from_jax", "adamax_state_from_jax", "gpssm_state_from_jax",
-           "ut_state_from_jax", "gplvm_state_from_jax"]
+           "ut_state_from_jax", "gplvm_state_from_jax", "pad_state_from_jax",
+           "fullcov_state_from_jax"]
 
 
 def _nat(xi, prec):
@@ -187,3 +193,20 @@ def gplvm_state_from_jax(state, device="cuda") -> GPLVMState:
     x_means, x_covs, xi_v, prec_v = state
     return GPLVMState(t(x_means), t(x_covs), t(xi_v).to(torch.float64),
                       t(prec_v).to(torch.float64))
+
+
+def pad_state_from_jax(state, device="cuda"):
+    """The port's :class:`PADState` or :class:`ColoredPADState` from the JAX
+    one of the same name (numpy leaves), field for field, dtypes kept. Its
+    ``(lam1, lam2)`` are the ``sites0`` warm start of the next inference."""
+    cls = ColoredPADState if hasattr(state, "f_mean") else PADState
+    return _params(cls, state, _tensor(device))
+
+
+def fullcov_state_from_jax(state, device="cuda") -> FullCovState:
+    """The port's :class:`FullCovState` from the JAX one (numpy leaves; its
+    q(γ) a ``GammaShapeRate``), field for field, dtypes kept."""
+    t = _tensor(device)
+    return FullCovState(t(state.m_f), t(state.V_f),
+                        GammaShapeRate(t(state.gamma.shape), t(state.gamma.rate)),
+                        t(state.m_th), t(state.v_th), t(state.fe))

@@ -38,32 +38,11 @@ from .chain_smoother import (
     gpssm_free_energy,
     gpssm_vmp,
 )
+from .sde_gp import _inv33
 
 __all__ = ["gpssm_vmp_pit", "slr_transition", "parallel_lgssm_smooth"]
 
 _SR = quad.SphericalRadial()
-
-
-def _inv33(m):
-    """Batched closed-form 3×3 inverse (adjugate over determinant), the
-    port's copy of the JAX package's ``infer/sde_gp.py::_inv33``."""
-    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    c00 = e * i - f * h
-    c01 = f * g - d * i
-    c02 = d * h - e * g
-    c10 = c * h - b * i
-    c11 = a * i - c * g
-    c12 = b * g - a * h
-    c20 = b * f - c * e
-    c21 = c * d - a * f
-    c22 = a * e - b * d
-    det = a * c00 + b * c01 + c * c02
-    inv = torch.stack([torch.stack([c00, c10, c20], -1),
-                       torch.stack([c01, c11, c21], -1),
-                       torch.stack([c02, c12, c22], -1)], -2)
-    return inv / det[..., None, None]
 
 
 def _inv_batched(m):

@@ -44,10 +44,11 @@ def invsoftplus(x):
 def sqdist(X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """Pairwise squared Euclidean distances ``|x_i|² + |z_j|² − 2 x_i·z_j``,
     clamped at 0 to kill negative round-off. The cross term runs in full
-    precision: ``config`` keeps TF32 off."""
-    xx = torch.sum(X * X, dim=-1)[:, None]
-    zz = torch.sum(Z * Z, dim=-1)[None, :]
-    cross = torch.matmul(X, Z.T)
+    precision: ``config`` keeps TF32 off. X (..., N, D) and Z (..., M, D)
+    may carry broadcasting batch dimensions (one Gram per lengthscale)."""
+    xx = torch.sum(X * X, dim=-1)[..., :, None]
+    zz = torch.sum(Z * Z, dim=-1)[..., None, :]
+    cross = torch.matmul(X, Z.mT)
     return torch.clamp_min(xx + zz - 2.0 * cross, 0.0)
 
 

@@ -19,7 +19,9 @@ Conventions:
   that axis, where the JAX package vmaps a scalar function over the points;
   ``moment_match_multi_batch`` matches B products at once, where the JAX
   package vmaps ``moment_match_multi``, and its ``logf`` takes the (B, P, d)
-  points of all of them.
+  points of all of them; ``moment_match_uni_batch`` and
+  ``moment_match_uni_logz_batch`` do the same for univariate products (the
+  (..., n) points of every site).
   The joint forms pass ``g`` one argument per marginal, each with the points
   along its first axis.
 
@@ -61,6 +63,8 @@ __all__ = [
     "expect_multi",
     "moment_match_uni",
     "moment_match_uni_logz",
+    "moment_match_uni_batch",
+    "moment_match_uni_logz_batch",
     "moment_match_multi",
     "moment_match_multi_batch",
 ]
@@ -327,6 +331,50 @@ def moment_match_uni_logz(logf, m, v, n: int = 21):
     log_z = torch.log(Zs) + lmax
     mt = torch.sum(w * f * pts) / Zs
     vt = torch.sum(w * f * (pts - mt) ** 2) / Zs
+    good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
+    return (torch.where(good, mt, m), torch.where(good, vt, v),
+            torch.where(good & torch.isfinite(log_z), log_z,
+                        torch.full_like(log_z, -float("inf"))))
+
+
+def _stabilised_mass_rows(logf, pts, w):
+    """:func:`_stabilised_mass` for a batch of products: points (..., n),
+    one max, mass, guard and safe Z per row (the last axis), as the JAX
+    package's ``vmap`` of the single-product rule gives each row its own."""
+    lf = logf(pts)
+    lmax = torch.amax(lf, dim=-1)
+    shift = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
+    f = torch.exp(lf - shift[..., None])
+    Z = torch.sum(w * f, dim=-1)
+    ok_z = torch.isfinite(Z) & (Z > 0)
+    Zs = torch.where(ok_z, Z, torch.ones_like(Z))
+    return f, ok_z, Zs, lmax
+
+
+def moment_match_uni_batch(logf, m, v, n: int = 21, var_floor: float = 0.0):
+    """:func:`moment_match_uni` for a batch of products N(mᵢ, vᵢ)·exp(logfᵢ):
+    m, v (...), ``logf`` takes the (..., n) GH points of all of them and
+    returns (..., n). Each row keeps its own stabilising max and its own
+    fallback to (mᵢ, vᵢ)."""
+    pts, w = gh_points_weights(n, m, v)
+    f, ok_z, Zs, _ = _stabilised_mass_rows(logf, pts, w)
+    wf = w * f
+    mt = torch.sum(wf * pts, dim=-1) / Zs
+    vt = torch.sum(wf * (pts - mt[..., None]) ** 2, dim=-1) / Zs + var_floor
+    good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
+    return torch.where(good, mt, m), torch.where(good, vt, v)
+
+
+def moment_match_uni_logz_batch(logf, m, v, n: int = 21):
+    """:func:`moment_match_uni_logz` for a batch of products, as
+    :func:`moment_match_uni_batch`: (m̃, ṽ, log Z) per row, a row that is not
+    finite falling back to (mᵢ, vᵢ, −inf)."""
+    pts, w = gh_points_weights(n, m, v)
+    f, ok_z, Zs, lmax = _stabilised_mass_rows(logf, pts, w)
+    log_z = torch.log(Zs) + lmax
+    wf = w * f
+    mt = torch.sum(wf * pts, dim=-1) / Zs
+    vt = torch.sum(wf * (pts - mt[..., None]) ** 2, dim=-1) / Zs
     good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
     return (torch.where(good, mt, m), torch.where(good, vt, v),
             torch.where(good & torch.isfinite(log_z), log_z,

@@ -1,6 +1,7 @@
 """Dataset loaders and synthetic-data generators (L7 layer): the toy
-workloads, kin40k, banana and the GPLVM's oil-flow data, and the pendulum
-GPSSM's data and inducing grid.
+workloads, kin40k, banana and the GPLVM's oil-flow data, the pendulum
+GPSSM's data and inducing grid, and the legacy runner's two real-data
+files (Mauna-Loa CO₂ and BTC-USD).
 
 Counterpart of ``gaussianprocessnode_tpu/utils/datasets.py``; numpy and
 scipy only. The port keeps its own copy of the loader: importing the JAX
@@ -16,7 +17,7 @@ import numpy as np
 __all__ = ["REFERENCE_ROOT", "Dataset", "toy_sinc", "toy_classification",
            "toy_sinc_reference", "toy_classification_reference", "split2batch", "kin40k",
            "kin40k_synthetic", "banana", "banana_synthetic", "oil_flow", "oil_flow_synthetic",
-           "pendulum", "pendulum_inducing"]
+           "pendulum", "pendulum_inducing", "co2", "btc_usd"]
 
 _REPO = Path(__file__).resolve().parents[2]
 # the reference's data files: $GPNODE_REFERENCE_DATA, else reference/ in the
@@ -275,3 +276,34 @@ def pendulum_inducing():
     xu1 = np.linspace(-2, 2, len(xu2) // 2)
     xu1 = np.concatenate([xu1[::-1], xu1 + 1e-5])
     return np.stack([xu1, xu2], axis=1)
+
+
+def _existing(path):
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{path} is missing: the reference's data file is not in "
+                                "the repository")
+    return path
+
+
+def co2(root: str = REFERENCE_ROOT):
+    """Mauna-Loa CO₂ series (reference: data/co2data.csv, 1958–2024
+    monthly). The file is semicolon-delimited with a leading empty column
+    (``;year;month;decimal-date;monthly-average;de-seasonalized;…``).
+    Returns (t, y): decimal dates and monthly averages (ppm), rows with a
+    missing-value sentinel (≤ 0) dropped. Raises FileNotFoundError naming
+    the path when the file is absent."""
+    raw = np.genfromtxt(_existing(os.path.join(root, "data", "co2data.csv")),
+                        delimiter=";", skip_header=1)
+    t, y = raw[:, 3], raw[:, 4]
+    keep = y > 0.0
+    return t[keep], y[keep]
+
+
+def btc_usd(root: str = REFERENCE_ROOT):
+    """BTC-USD daily prices (reference: BTC-USD.csv, 365 rows). Returns
+    (t, ohlcv): the day index (float) and the columns Open, High, Low,
+    Close, Volume. Raises FileNotFoundError naming the path when the file
+    is absent."""
+    raw = np.genfromtxt(_existing(os.path.join(root, "BTC-USD.csv")),
+                        delimiter=",", skip_header=1, usecols=(1, 2, 3, 4, 6))
+    return np.arange(raw.shape[0], dtype=np.float64), raw

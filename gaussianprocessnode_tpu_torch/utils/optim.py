@@ -7,6 +7,9 @@ Counterpart of ``gaussianprocessnode_tpu/utils/optim.py``:
   ``zero_nans`` and clipping links: a NaN gradient reaches the parameters
   as NaN, as in JAX. An optional ``exponential_decay`` of the rate is the
   pendulum M-step's schedule;
+- ``Adam``: ``optax.adam`` written out by hand (b1 = 0.9, b2 = 0.999,
+  eps = 1e-8 outside the square root, eps_root = 0, bias-corrected), the
+  EP-EM trainers' optimizer (``infer/pad_learn.py``);
 - ``lbfgs_minimize``: scipy's L-BFGS-B on the host over a torch
   value-and-grad, the reference's Optim.LBFGS run to convergence;
 - ``nelder_mead``: scipy's Nelder–Mead on the host over a torch objective,
@@ -15,12 +18,17 @@ Counterpart of ``gaussianprocessnode_tpu/utils/optim.py``:
 Both scipy routines read the objective on the host at every evaluation.
 """
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from .. import config
 from ..infer.minibatch import AdaMaxChain
 
-__all__ = ["adamax", "lbfgs_minimize", "nelder_mead"]
+__all__ = ["adamax", "Adam", "lbfgs_minimize", "nelder_mead"]
+
+_INT32_MAX = 2**31 - 1
 
 
 def adamax(learning_rate: float = 0.002, decay_rate: float = 1.0,
@@ -32,6 +40,37 @@ def adamax(learning_rate: float = 0.002, decay_rate: float = 1.0,
     ScaleByScheduleState (``lr_count``) when the rate decays."""
     return AdaMaxChain(learning_rate=learning_rate, decay_rate=decay_rate,
                        transition_steps=transition_steps, max_norm=None, zero_nans=False)
+
+
+@dataclass(frozen=True)
+class Adam:
+    """``optax.adam(learning_rate)`` over one tensor of parameters. Its
+    state is a dict that maps one to one onto optax's ScaleByAdamState:
+    ``count`` (int32, incremented up to its maximum), ``mu`` and ``nu``.
+    As in optax, 1 − bᶜᵒᵘⁿᵗ is formed in the default float dtype
+    (``config.default_dtype()``) and cast to the parameters' dtype; the
+    step count stays on the device, so a step reads nothing on the host."""
+
+    learning_rate: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: torch.Tensor) -> dict:
+        return {"count": torch.zeros((), dtype=torch.int32, device=params.device),
+                "mu": torch.zeros_like(params), "nu": torch.zeros_like(params)}
+
+    def update_(self, grads: torch.Tensor, state: dict) -> torch.Tensor:
+        """One step on ``grads``: writes the new state into ``state``'s
+        tensors and returns the update to add to the parameters."""
+        mu, nu, count = state["mu"], state["nu"], state["count"]
+        mu.copy_((1 - self.b1) * grads + self.b1 * mu)
+        nu.copy_((1 - self.b2) * (grads * grads) + self.b2 * nu)
+        count.copy_(torch.where(count < _INT32_MAX, count + 1, count))
+        c = count.to(config.default_dtype())
+        mu_hat = mu / (1 - torch.pow(self.b1, c)).to(mu.dtype)
+        nu_hat = nu / (1 - torch.pow(self.b2, c)).to(nu.dtype)
+        return -self.learning_rate * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
 
 
 def lbfgs_minimize(value_and_grad_fn, x0, args=(), maxiter: int = 200):

@@ -723,3 +723,66 @@ def test_gplvm_float64_sweep_on_card_matches_cpu():
     assert float((card.x_means.cpu() - host.x_means).abs().max()) <= 1e-4
     assert rel(card.x_covs, host.x_covs) <= 3e-3
     assert abs(float(fe_card) - float(fe_host)) <= 2e-6 * abs(float(fe_host))
+
+
+def _relmax(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _legacy_chain(dev, T, seed=11):
+    from gaussianprocessnode_tpu_torch.experiments.legacy_gp import padscale_data
+
+    return tuple(torch.as_tensor(a, device=dev) for a in padscale_data(T))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parallel", [False, True])
+def test_sde_smoother_float64_on_card_matches_cpu(parallel):
+    """The SDE-GP smoother (T = 1,000, a third of the sites masked,
+    heteroscedastic R) and its NLML gradient in float64, card against host:
+    1e-10 (the same recursion; cuBLAS and the host's BLAS round its 3×3
+    products in other orders). No kernel launches."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_nlml, sde_gp_smooth
+
+    out = {}
+    before = sg.se_gram_cuda.launches
+    for dev in ("cuda", "cpu"):
+        t, z, mask, r = _legacy_chain(dev, 1000)
+        th = torch.tensor([1.0, 0.9], dtype=torch.float64, device=dev, requires_grad=True)
+        res = sde_gp_smooth(th, t, z, mask, r, parallel=parallel)
+        (g,) = torch.autograd.grad(sde_gp_nlml(th, t, z, mask, r, parallel=parallel), th)
+        out[dev] = (res.mean, res.var, res.log_lik, g)
+    assert sg.se_gram_cuda.launches == before
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _relmax(a, b) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_gppad_float64_on_card_matches_cpu():
+    """GP-PAD (8 EP sweeps, a 3-model bank) and one colored sweep's
+    implicit gradient in float64, card against host: 1e-9 (the EP loop
+    carries each sweep's rounding into the next tilt)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.infer import gppad as tg
+    from gaussianprocessnode_tpu_torch.infer import pad_learn as tl
+
+    def run(dev):
+        t = torch.linspace(0.0, 4.0, 200, dtype=torch.float64, device=dev)
+        gen = np.random.default_rng(3)
+        y = torch.as_tensor(0.2 * gen.normal(size=200) * np.exp(0.8 * np.sin(1.5 * t.cpu().numpy())),
+                            device=dev)
+        ths = torch.tensor([[1.0, 0.9], [1.0, 0.2], [1.0, 3.0]], dtype=torch.float64, device=dev)
+        st = tg.gppad_infer(ths, t, y, carrier_var=0.04, iters=8)
+        ell = torch.tensor([0.3, 0.1], dtype=torch.float64, device=dev)
+        fit = tl.fit_gppad_colored_theta(t, y, ell, var_f=0.4, var_c=1.0, epochs=1, ep_iters=6,
+                                         adjoint_iters=3)
+        return st.mean, st.lam2, fit.theta, fit.evidence
+
+    before = sg.se_gram_cuda.launches
+    card = run("cuda")
+    assert sg.se_gram_cuda.launches == before
+    for a, b in zip(card, run("cpu")):
+        assert torch.isfinite(a).all()
+        assert _relmax(a, b) <= 1e-9
