@@ -11,7 +11,7 @@ so p(y_t | f_t) = N(y_t; 0, σ_c² e^{2 f_t}). Inference is parallel EP over
 the chain: Gaussian sites (λ₁ₜ, λ₂ₜ) stand in for the likelihoods; one
 iteration is a Kalman/RTS sweep with the sites as heteroscedastic
 pseudo-observations, a GH tilt of every cavity against the exact likelihood
-(``moment_match_uni_batch``: all T sites at once, each with its own
+(``moment_match_uni`` on all T sites at once, each with its own
 stabilising max and fallback, where the JAX package vmaps the single-site
 rule) and a damped site update. The update is branchless: a site without a
 valid cavity, a non-finite tilt or a precision outside (0, 1e12) keeps its
@@ -33,8 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.quadrature import moment_match_uni_batch
-from .sde_gp import sde_gp_smooth
+from ..ops.quadrature import moment_match_uni
+from .sde_gp import SDEGPResult, sde_gp_smooth
 
 __all__ = ["PADState", "gppad_infer", "pad_loglik", "ColoredPADState", "gppad_colored_infer",
            "colored_pad_loglik", "colored_pad_sweep", "two_stage_tilt"]
@@ -114,7 +114,7 @@ def gppad_infer(theta, t, y, carrier_var=1.0, iters: int = 20, damping: float = 
     yp, cvp = y[..., None], cv[..., None, None]
 
     def tilt(m_cav, v_cav):
-        return moment_match_uni_batch(lambda f: pad_loglik(yp, f, cvp), m_cav, v_cav, n=n_gh)
+        return moment_match_uni(lambda f: pad_loglik(yp, f, cvp), m_cav, v_cav, n=n_gh)
 
     lam1, lam2 = _sites(sites0, shape, dt, dev)
     deltas = []
@@ -159,24 +159,34 @@ def two_stage_tilt(ll, m, v, n: int = 61):
     variance is floored at 1e-12: a near-delta likelihood can collapse the
     product onto one GH node, and pass 2's (f−m₁)²/(2v₁) would then put
     under- or overflow into every gradient through the tilt."""
-    m1, v1 = moment_match_uni_batch(ll, m, v, n=n)
+    m1, v1 = moment_match_uni(ll, m, v, n=n)
     v1 = torch.clamp_min(v1, 1e-12)
     mb, vb, m1b, v1b = m[..., None], v[..., None], m1[..., None], v1[..., None]
 
     def ll2(f):
         return ll(f) - (f - mb) ** 2 / (2.0 * vb) + (f - m1b) ** 2 / (2.0 * v1b)
 
-    return moment_match_uni_batch(ll2, m1, v1, n=n)
+    return moment_match_uni(ll2, m1, v1, n=n)
 
 
-def _carrier_pass(theta_c, t, y, m, v, obs_var, parallel):
-    """The exact q(c) chain given the envelope moments: pseudo-observations
-    z = y·E[g]/E[g²], R = σ_y²/E[g²], with E[g] = e^{m+v/2}, E[g²] =
-    e^{2m+2v}. Returns (E[g], q(c) result)."""
-    Eg = torch.exp(m + 0.5 * v)
-    Eg2 = torch.exp(2.0 * m + 2.0 * v)
-    ones = torch.ones(y.shape[-1], dtype=torch.bool, device=y.device)
-    return Eg, sde_gp_smooth(theta_c, t, y * Eg / Eg2, ones, obs_var / Eg2, parallel=parallel)
+class _Carrier(NamedTuple):
+    eg: torch.Tensor  # (..., T) E[g] = e^{m+v/2}
+    eg2: torch.Tensor  # (..., T) E[g²] = e^{2m+2v}
+    z: torch.Tensor  # (..., T) pseudo-observations y·E[g]/E[g²]
+    r: torch.Tensor  # (..., T) their variances σ_y²/E[g²]
+    mask: torch.Tensor  # (T,) every site observed
+    res: SDEGPResult  # the q(c) chain smoothed
+
+
+def _carrier_pass(theta_c, t, y, m, v, obs_var, parallel) -> _Carrier:
+    """The exact q(c) chain given the envelope moments (m, v): the carrier
+    pseudo-observations and the chain smoothed under them."""
+    eg = torch.exp(m + 0.5 * v)
+    eg2 = torch.exp(2.0 * m + 2.0 * v)
+    z, r = y * eg / eg2, obs_var / eg2
+    mask = torch.ones(y.shape[-1], dtype=torch.bool, device=y.device)
+    return _Carrier(eg, eg2, z, r, mask,
+                    sde_gp_smooth(theta_c, t, z, mask, r, parallel=parallel))
 
 
 def colored_pad_sweep(theta_f, theta_c, t, y, sites, obs_var=1e-3, damping: float = 0.5,
@@ -189,7 +199,7 @@ def colored_pad_sweep(theta_f, theta_c, t, y, sites, obs_var=1e-3, damping: floa
     z, r, mask = _pseudo_obs(lam1, lam2, lam2_floor)
     resf = sde_gp_smooth(theta_f, t, z, mask, r, parallel=parallel)
     m, v = resf.mean, resf.var
-    _, resc = _carrier_pass(theta_c, t, y, m, v, obs_var, parallel)
+    resc = _carrier_pass(theta_c, t, y, m, v, obs_var, parallel).res
     yp, mcp, vcp = y[..., None], resc.mean[..., None], resc.var[..., None]
 
     def tilt(m_cav, v_cav):
@@ -225,9 +235,9 @@ def gppad_colored_infer(theta_f, theta_c, t, y, obs_var: float = 1e-3, iters: in
     z, r, mask = _pseudo_obs(lam1, lam2, lam2_floor)
     resf = sde_gp_smooth(theta_f, t, z, mask, r, parallel=parallel)
     # the final q(c) at the final f moments (the loop's is one sweep stale)
-    Eg, resc = _carrier_pass(theta_c, t, y, resf.mean, resf.var, obs_var, parallel)
+    car = _carrier_pass(theta_c, t, y, resf.mean, resf.var, obs_var, parallel)
     delta = (torch.stack(deltas, -1) if deltas
              else torch.zeros(shape[:-1] + (0,), dtype=dt, device=dev))
-    return ColoredPADState(f_mean=resf.mean, f_var=resf.var, c_mean=resc.mean,
-                           c_var=resc.var, envelope=Eg, site_delta=delta, lam1=lam1,
+    return ColoredPADState(f_mean=resf.mean, f_var=resf.var, c_mean=car.res.mean,
+                           c_var=car.res.var, envelope=car.eg, site_delta=delta, lam1=lam1,
                            lam2=lam2)

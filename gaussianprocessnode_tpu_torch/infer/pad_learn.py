@@ -35,9 +35,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.quadrature import moment_match_uni, moment_match_uni_logz_batch
+from ..ops.quadrature import moment_match_uni, moment_match_uni_logz
 from ..utils.optim import Adam
-from .gppad import (_TWO_PI, PADState, _pseudo_obs, colored_pad_sweep,
+from .gppad import (_TWO_PI, PADState, _carrier_pass, _pseudo_obs, colored_pad_sweep,
                     gppad_colored_infer, gppad_infer, pad_loglik)
 from .sde_gp import sde_gp_smooth
 
@@ -78,8 +78,7 @@ def ep_chain_evidence(theta, t, lam1, lam2, loglik, args=(), n_gh: int = 61,
     res = sde_gp_smooth(theta, t, z, active, r, parallel=parallel)
     m_cav, v_cav, prec_cav = _cavities(res.mean, res.var, lam1, lam2, active)
     cols = [a[..., None] for a in args]
-    _, _, log_zt = moment_match_uni_logz_batch(lambda f: loglik(f, *cols), m_cav, v_cav,
-                                               n=n_gh)
+    _, _, log_zt = moment_match_uni_logz(lambda f: loglik(f, *cols), m_cav, v_cav, n=n_gh)
     # log G_k = log ∫ cav·e^{λ₁f − λ₂f²/2} df: combined precision p, linear h
     p = prec_cav + lam2
     h = m_cav * prec_cav + lam1
@@ -144,18 +143,13 @@ def colored_pad_elbo(theta_f, theta_c, t, y, lam1, lam2, obs_var=1e-3,
     zf, rf, active = _pseudo_obs(lam1, lam2, lam2_floor)
     resf = sde_gp_smooth(theta_f, t, zf, active, rf, parallel=parallel)
     m, v = resf.mean, resf.var
-    eg = torch.exp(m + 0.5 * v)
-    eg2 = torch.exp(2.0 * m + 2.0 * v)
-    zc = y * eg / eg2
-    rc = obs_var / eg2
-    ones = torch.ones(y.shape[-1], dtype=torch.bool, device=dev)
-    resc = sde_gp_smooth(theta_c, t, zc, ones, rc, parallel=parallel)
-    mc, vc = resc.mean, resc.var
+    car = _carrier_pass(theta_c, t, y, m, v, obs_var, parallel)
+    mc, vc = car.res.mean, car.res.var
     e_lik = torch.sum(-0.5 * math.log(_TWO_PI * obs_var)
-                      - (y * y - 2.0 * y * mc * eg + (mc * mc + vc) * eg2)
+                      - (y * y - 2.0 * y * mc * car.eg + (mc * mc + vc) * car.eg2)
                       / (2.0 * obs_var), -1)
     kl_f = _site_cross_terms(zf, rf, m, v, active) - resf.log_lik
-    kl_c = _site_cross_terms(zc, rc, mc, vc, ones) - resc.log_lik
+    kl_c = _site_cross_terms(car.z, car.r, mc, vc, car.mask) - car.res.log_lik
     return e_lik - kl_f - kl_c
 
 

@@ -19,9 +19,9 @@ Conventions:
   that axis, where the JAX package vmaps a scalar function over the points;
   ``moment_match_multi_batch`` matches B products at once, where the JAX
   package vmaps ``moment_match_multi``, and its ``logf`` takes the (B, P, d)
-  points of all of them; ``moment_match_uni_batch`` and
-  ``moment_match_uni_logz_batch`` do the same for univariate products (the
-  (..., n) points of every site).
+  points of all of them; ``moment_match_uni`` and ``moment_match_uni_logz``
+  take a batch of univariate products the same way (the (..., n) points of
+  every site).
   The joint forms pass ``g`` one argument per marginal, each with the points
   along its first axis.
 
@@ -63,8 +63,6 @@ __all__ = [
     "expect_multi",
     "moment_match_uni",
     "moment_match_uni_logz",
-    "moment_match_uni_batch",
-    "moment_match_uni_logz_batch",
     "moment_match_multi",
     "moment_match_multi_batch",
 ]
@@ -291,56 +289,13 @@ def expect_multi(method, f, m, V):
 
 
 def _stabilised_mass(logf, pts, w):
-    """exp(logf − max) at the points, its weighted sum Z, the guard Z finite
-    and positive, the Z safe to divide by, and the max. The double where on
-    Z keeps the gradient free of NaN when the product has zero quadrature
-    mass: Σ/Z at Z = 0 is a NaN whose derivative would reach the cotangent
-    through the fallback where (0·NaN = NaN)."""
-    lf = logf(pts)
-    lmax = torch.amax(lf)
-    f = torch.exp(lf - torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax)))
-    Z = torch.sum(w * f)
-    ok_z = torch.isfinite(Z) & (Z > 0)
-    Zs = torch.where(ok_z, Z, torch.ones_like(Z))
-    return f, ok_z, Zs, lmax
-
-
-def moment_match_uni(logf, m, v, n: int = 21, var_floor: float = 0.0):
-    """Moment-match N(m,v)·exp(logf) with the n-point GH rule; ``logf``
-    takes the (n,) points at once.
-
-    ReactiveMP ``prod(GenericProd, Normal, ContinuousUnivariateLogPdf)``
-    through ``approximate_meancov(ghcubature(21), …)`` (reference:
-    UniSGPnode.jl:39-54). A product that is not finite falls back to
-    (m, v); ``var_floor`` is the +1e-6 floor of the (Normal, LogPdf) order.
-    """
-    pts, w = gh_points_weights(n, m, v)
-    f, ok_z, Zs, _ = _stabilised_mass(logf, pts, w)
-    mt = torch.sum(w * f * pts) / Zs
-    vt = torch.sum(w * f * (pts - mt) ** 2) / Zs + var_floor
-    good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
-    return torch.where(good, mt, m), torch.where(good, vt, v)
-
-
-def moment_match_uni_logz(logf, m, v, n: int = 21):
-    """:func:`moment_match_uni` and the tilted log-normalizer
-    log Z = log ∫ N(f; m, v)·exp(logf(f)) df by the same rule. A product
-    that is not finite falls back to (m, v, −inf)."""
-    pts, w = gh_points_weights(n, m, v)
-    f, ok_z, Zs, lmax = _stabilised_mass(logf, pts, w)
-    log_z = torch.log(Zs) + lmax
-    mt = torch.sum(w * f * pts) / Zs
-    vt = torch.sum(w * f * (pts - mt) ** 2) / Zs
-    good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
-    return (torch.where(good, mt, m), torch.where(good, vt, v),
-            torch.where(good & torch.isfinite(log_z), log_z,
-                        torch.full_like(log_z, -float("inf"))))
-
-
-def _stabilised_mass_rows(logf, pts, w):
-    """:func:`_stabilised_mass` for a batch of products: points (..., n),
-    one max, mass, guard and safe Z per row (the last axis), as the JAX
-    package's ``vmap`` of the single-product rule gives each row its own."""
+    """exp(logf − max) at the points (..., n), its weighted sum Z, the guard
+    Z finite and positive, the Z safe to divide by, and the max, one each
+    per row (the last axis), as the JAX package's ``vmap`` of the
+    single-product rule gives each row its own. The double where on Z keeps
+    the gradient free of NaN when the product has zero quadrature mass: Σ/Z
+    at Z = 0 is a NaN whose derivative would reach the cotangent through
+    the fallback where (0·NaN = NaN)."""
     lf = logf(pts)
     lmax = torch.amax(lf, dim=-1)
     shift = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
@@ -351,30 +306,41 @@ def _stabilised_mass_rows(logf, pts, w):
     return f, ok_z, Zs, lmax
 
 
-def moment_match_uni_batch(logf, m, v, n: int = 21, var_floor: float = 0.0):
-    """:func:`moment_match_uni` for a batch of products N(mᵢ, vᵢ)·exp(logfᵢ):
-    m, v (...), ``logf`` takes the (..., n) GH points of all of them and
-    returns (..., n). Each row keeps its own stabilising max and its own
-    fallback to (mᵢ, vᵢ)."""
-    pts, w = gh_points_weights(n, m, v)
-    f, ok_z, Zs, _ = _stabilised_mass_rows(logf, pts, w)
+def _tilted_moments(pts, w, f, Zs):
+    """The tilted mean and variance per row from :func:`_stabilised_mass`."""
     wf = w * f
     mt = torch.sum(wf * pts, dim=-1) / Zs
-    vt = torch.sum(wf * (pts - mt[..., None]) ** 2, dim=-1) / Zs + var_floor
+    vt = torch.sum(wf * (pts - mt[..., None]) ** 2, dim=-1) / Zs
+    return mt, vt
+
+
+def moment_match_uni(logf, m, v, n: int = 21, var_floor: float = 0.0):
+    """Moment-match N(m,v)·exp(logf) with the n-point GH rule, for one
+    product or a batch of them: m, v (...), ``logf`` takes the (..., n)
+    points of all of them at once and returns (..., n). Each row keeps its
+    own stabilising max and its own fallback.
+
+    ReactiveMP ``prod(GenericProd, Normal, ContinuousUnivariateLogPdf)``
+    through ``approximate_meancov(ghcubature(21), …)`` (reference:
+    UniSGPnode.jl:39-54). A product that is not finite falls back to
+    (m, v); ``var_floor`` is the +1e-6 floor of the (Normal, LogPdf) order.
+    """
+    pts, w = gh_points_weights(n, m, v)
+    f, ok_z, Zs, _ = _stabilised_mass(logf, pts, w)
+    mt, vt = _tilted_moments(pts, w, f, Zs)
+    vt = vt + var_floor
     good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
     return torch.where(good, mt, m), torch.where(good, vt, v)
 
 
-def moment_match_uni_logz_batch(logf, m, v, n: int = 21):
-    """:func:`moment_match_uni_logz` for a batch of products, as
-    :func:`moment_match_uni_batch`: (m̃, ṽ, log Z) per row, a row that is not
-    finite falling back to (mᵢ, vᵢ, −inf)."""
+def moment_match_uni_logz(logf, m, v, n: int = 21):
+    """:func:`moment_match_uni` and the tilted log-normalizer
+    log Z = log ∫ N(f; m, v)·exp(logf(f)) df by the same rule, per row. A
+    product that is not finite falls back to (m, v, −inf)."""
     pts, w = gh_points_weights(n, m, v)
-    f, ok_z, Zs, lmax = _stabilised_mass_rows(logf, pts, w)
+    f, ok_z, Zs, lmax = _stabilised_mass(logf, pts, w)
     log_z = torch.log(Zs) + lmax
-    wf = w * f
-    mt = torch.sum(wf * pts, dim=-1) / Zs
-    vt = torch.sum(wf * (pts - mt[..., None]) ** 2, dim=-1) / Zs
+    mt, vt = _tilted_moments(pts, w, f, Zs)
     good = ok_z & torch.isfinite(mt) & torch.isfinite(vt) & (vt > 0)
     return (torch.where(good, mt, m), torch.where(good, vt, v),
             torch.where(good & torch.isfinite(log_z), log_z,

@@ -2,9 +2,10 @@
 moment matching (ops/quadrature.py) with the JAX package's, on the CPU in
 float64.
 
-- ``moment_match_uni_batch`` / ``moment_match_uni_logz_batch`` row by row
-  against the port's single-site functions (1e-14 relative: the same sums
-  along the GH axis) and against ``jax.vmap`` of JAX's (1e-13), on rows whose
+- ``moment_match_uni`` / ``moment_match_uni_logz`` on a batch of products,
+  row by row against the same functions called on each row alone (1e-14
+  relative: the same sums along the GH axis) and against JAX's single-site
+  functions (1e-13), on rows whose
   log-densities differ by thousands of nats (a shared max would underflow
   every row but one), a row with zero quadrature mass (−inf everywhere), a
   NaN row and a row with a non-positive matched variance: each keeps its own
@@ -102,8 +103,8 @@ def _batch_logf(f):
 @pytest.mark.parametrize("n", [21, 61])
 def test_moment_match_batch_row_by_row(n):
     m, v = t64(ROWS_M), t64(ROWS_V)
-    mb, vb = tq.moment_match_uni_batch(_batch_logf, m, v, n=n)
-    mz, vz, lz = tq.moment_match_uni_logz_batch(_batch_logf, m, v, n=n)
+    mb, vb = tq.moment_match_uni(_batch_logf, m, v, n=n)
+    mz, vz, lz = tq.moment_match_uni_logz(_batch_logf, m, v, n=n)
     for k in range(len(ROWS_M)):
         ms, vs = tq.moment_match_uni(lambda f: _row_logf(f, k, torch), m[k], v[k], n=n)
         mzs, vzs, lzs = tq.moment_match_uni_logz(lambda f: _row_logf(f, k, torch), m[k], v[k],
@@ -132,7 +133,7 @@ def test_moment_match_batch_gradient_through_a_dead_row():
         return -0.5 * (f - 0.7) ** 2 + t64(dead)[:, None]
 
     m = t64(ROWS_M[:2]).requires_grad_()
-    mb, vb = tq.moment_match_uni_batch(tlogf, m, t64(ROWS_V[:2]), n=21)
+    mb, vb = tq.moment_match_uni(tlogf, m, t64(ROWS_V[:2]), n=21)
     (g,) = torch.autograd.grad((mb + vb).sum(), m)
 
     def jrow(mk, vk, dk):
