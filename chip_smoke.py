@@ -47,7 +47,15 @@ against its direct call; and runs the legacy-notebook families in float64
 T = 2^17, held to each other by the JAX runner's cross-check; the parallel
 smoother at T = 2^13 and the runner's tprocess, sde, fullcov, pad, pad2,
 control and a cut padlearn on the card against the host; a profiled
-smoother call and colored-EM epoch; no kernel launches). It prints
+smoother call and colored-EM epoch; no kernel launches); and runs the
+parallel layer at world size 1 over NCCL (one card: NCCL refuses two ranks
+on one device), at full width: the data-parallel kin40k and banana
+trainers (3 epochs each, through the kernel; epochs 2-3 under
+set_sync_debug_mode("error")) held bit for bit to the single-device
+trainers and the kin40k one to its plain-Gram route, the tensor-parallel
+sweep (M = 600) and prediction held to the dense sweep, and the
+sequence-parallel GPSSM smoother (T = 300, M = 48, 25 sweeps, float32)
+held to the Jacobi smoother. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -141,7 +149,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/14 device: start")
+    say("phase 1/15 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -155,12 +163,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/14 device: done")
+    say("phase 1/15 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/14 build: start")
+    say("phase 2/15 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -170,7 +178,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/14 build: done")
+    say("phase 2/15 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -201,7 +209,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/14 kernel vs plain: start")
+    say("phase 3/15 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -277,12 +285,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/14 kernel vs plain: done")
+    say("phase 3/15 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/14 serving: start")
+    say("phase 4/15 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -353,7 +361,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/14 serving: done")
+    say("phase 4/15 serving: done")
     return handle, X, launches
 
 
@@ -429,7 +437,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/14 times: start")
+    say("phase 5/15 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -447,7 +455,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/14 times: done")
+    say("phase 5/15 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -522,7 +530,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/14 training: start")
+    say("phase 6/15 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -625,7 +633,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/14 training: done")
+    say("phase 6/15 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -694,7 +702,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/14 banana training: start")
+    say("phase 7/15 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -863,7 +871,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/14 banana training: done")
+    say("phase 7/15 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -893,7 +901,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/14 classifier serving: start")
+    say("phase 8/15 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -994,7 +1002,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/14 classifier serving: done")
+    say("phase 8/15 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1059,7 +1067,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/14 toy workloads: start")
+    say("phase 9/15 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1200,7 +1208,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/14 toy workloads: done")
+    say("phase 9/15 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1257,7 +1265,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/14 VSGP and FITC baselines: start")
+    say("phase 10/15 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1456,7 +1464,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/14 VSGP and FITC baselines: done")
+    say("phase 10/15 VSGP and FITC baselines: done")
     return out
 
 
@@ -1518,7 +1526,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/14 MultiSGP node and M-step objective: start")
+    say("phase 11/15 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1651,7 +1659,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/14 MultiSGP node and M-step objective: done")
+    say("phase 11/15 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -1950,7 +1958,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/14 GPSSM family: start")
+    say("phase 12/15 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2101,7 +2109,7 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/14 GPSSM family: done")
+    say("phase 12/15 GPSSM family: done")
     return out
 
 # the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
@@ -2326,7 +2334,7 @@ def phase_gplvm(seed, card):
       just before; the two GPLVM Gram shapes held to plain and timed;
     - each ``infer/model.py`` class's ``infer`` bit for bit against its
       direct call on the card."""
-    say("phase 13/14 GPLVM and the model front-end: start")
+    say("phase 13/15 GPLVM and the model front-end: start")
     from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -2441,7 +2449,7 @@ def phase_gplvm(seed, card):
     check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
     out["front_end_equal"] = same
     out["launches_by_path"] = {"gplvm_f32_sweep": l32}
-    say("phase 13/14 GPLVM and the model front-end: done")
+    say("phase 13/15 GPLVM and the model front-end: done")
     return out
 
 
@@ -2517,7 +2525,7 @@ def phase_legacy(card):
       the card and on the host;
     - a profiled sequential smoother call (T = 400) and a profiled
       colored-EM epoch at reduced depth (4 E-sweeps, 2 adjoint VJPs)."""
-    say("phase 14/14 legacy GP families: start")
+    say("phase 14/15 legacy GP families: start")
     from gaussianprocessnode_tpu_torch.experiments import legacy_gp as lg
     from gaussianprocessnode_tpu_torch.infer.pad_learn import fit_gppad_colored_theta
     from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_smooth
@@ -2615,7 +2623,279 @@ def phase_legacy(card):
           "the legacy families launched the float32 SE Gram kernel")
     out["launches"] = main_launches + rest
     out["launches_by_path"] = {"legacy_padscale": main_launches, "legacy_workloads": rest}
-    say("phase 14/14 legacy GP families: done")
+    say("phase 14/15 legacy GP families: done")
+    return out
+
+
+# the parallel layer (parallel/sharding.py, tensor_parallel.py,
+# seq_parallel.py) at world size 1 over NCCL: the card's machine has one
+# card, and NCCL refuses two ranks on one device, so every parallel function
+# runs on a one-rank group in this process. Its all-reduces and all-gathers
+# go through NCCL; its point-to-point exchanges (the TP ring's shifts, the
+# SP halos) post nothing at one rank. Multi-rank numerics are held on the
+# CPU over gloo (tests/test_torch_{sharding,tensor_parallel,seq_parallel}.py).
+# A one-rank NCCL all-reduce or all-gather returns its input, so each path
+# is the single-device path op for op: its carries must be bit-equal to the
+# single-device trainer's (PAR_RTOL is the ceiling if not, relative to each
+# field's largest entry).
+PAR_RTOL = 1e-12
+TP_PRIOR_VAR, TP_NS_ITERS, TP_IR_ROUNDS = 50.0, 60, 2
+SP_SWEEPS = 25                      # one runner E-step
+SP_LAUNCHES = 1 + 3 * SP_SWEEPS + 1  # Kuu; 3 per sweep; the free energy's node Psi
+
+
+def _field_diffs(a, b) -> dict:
+    """max |a − b| / max |b| per field of two carries (dicts of tensors;
+    0 where bit-equal)."""
+    out = {}
+    for k in b:
+        x, y = a[k].double(), b[k].double()
+        scale = float(y.abs().max()) or 1.0
+        out[k] = float((x - y).abs().max()) / scale
+    return out
+
+
+def _flat_carry(c, cov, **extra):
+    """A trainer carry's fields by name (its Λ⁻¹ estimate given as ``cov``)."""
+    d = {"xi": c[0], "prec": c[1], "cov": cov, "theta": c.theta, "kuu_inv": c.kuu_inv, **extra}
+    d.update({f"opt_{k}": v for k, v in c.opt_state.items()})
+    return d
+
+
+def _held_equal(label, a: dict, b: dict) -> dict:
+    d = _field_diffs(a, b)
+    equal = all(torch.equal(a[k], b[k]) for k in b)
+    worst = max(d.values())
+    print(f"{label}: bit-equal {equal}; largest relative difference {worst:.3e} "
+          f"(limit {PAR_RTOL:.0e})", flush=True)
+    check(worst <= PAR_RTOL, f"{label}: differs from the single-device path: {d}")
+    return {"bit_equal": equal, "max_rel": worst, "by_field": d}
+
+
+def phase_parallel(seed, card):
+    """The parallel layer at world size 1 over NCCL, at full width:
+
+    - ``fit_kin40k_fast_dp`` (M = 600, N = 10,000 in 20 batches of 500,
+      D = 8, float32 θ, float64 statistics), 3 epochs through the kernel,
+      41 launches per epoch, epochs 2–3 under ``set_sync_debug_mode("error")``;
+      its carry after each epoch held to ``fit_kin40k_fast``'s on the card
+      (bit-equal, PAR_RTOL at most), and to the same DP trainer through the
+      plain Gram (TRAIN_RTOL, as phase 6);
+    - ``fit_banana_fast_dp`` at banana width (M = 500, D = 2, 20 batches of
+      200), 3 epochs from one initial carry, held to ``fit_banana_fast``
+      the same way;
+    - ``tp_regression_sweep`` (M = 600, the 10,000 training points; 60
+      spectrum-scaled Newton–Schulz iterations, 2 refinement rounds) and
+      ``tp_predict`` (the 30,000 test points) against the dense sweep;
+    - ``gpssm_vmp_sp`` at pendulum width (T = 300, M = 48, float32 through
+      the kernel), 25 sweeps from the cold start, held to ``gpssm_vmp`` (the
+      Jacobi sweep it is op for op at world size 1) as the DP carries are.
+
+    Each path's launch count is set to 0 just before it and read just
+    after."""
+    say("phase 15/15 parallel layer (world size 1 over NCCL): start")
+    from gaussianprocessnode_tpu_torch.experiments import banana as brunner
+    from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
+    from gaussianprocessnode_tpu_torch.experiments import pendulum as prunner
+    from gaussianprocessnode_tpu_torch.infer.chain_smoother import gpssm_vmp
+    from gaussianprocessnode_tpu_torch.infer.minibatch import (clone_carry, fit_banana_fast,
+                                                               fit_kin40k_fast, init_banana_state)
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.linalg import (gershgorin_lambda_min, ir_solve,
+                                                          spd_inverse, sym)
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+    from gaussianprocessnode_tpu_torch.parallel import comm
+    from gaussianprocessnode_tpu_torch.parallel.seq_parallel import (gpssm_vmp_sp,
+                                                                     shard_chain_data)
+    from gaussianprocessnode_tpu_torch.parallel.sharding import (fit_banana_fast_dp,
+                                                                 fit_kin40k_fast_dp,
+                                                                 shard_batched_data)
+    from gaussianprocessnode_tpu_torch.parallel.tensor_parallel import (shard_inducing,
+                                                                        tp_predict,
+                                                                        tp_regression_sweep)
+
+    kern = Kernel("se", "softplus", use_kernel=True)
+    plain = Kernel("se", "softplus", use_kernel=False)
+    out = {}
+
+    def timed_epochs(label, fn, per_epoch):
+        """``EPOCHS`` calls of ``fn(carry) -> carry`` from None, counted and
+        timed one by one (epochs 2 on under sync debug mode "error");
+        returns the carries (cloned) and the launch counts."""
+        carries, launches, ms = [], [], []
+        carry = None
+        se_gram_cuda.launches = 0
+        for e in range(EPOCHS):
+            before = se_gram_cuda.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error" if e > 0 else "default")
+            try:
+                carry = fn(carry)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append(se_gram_cuda.launches - before)
+            carries.append(clone_carry(carry))
+            print(f"{label} epoch {e + 1}: {ms[-1]:.1f} ms (host clock, "
+                  f"{'sync debug mode error' if e > 0 else 'first epoch'}), se_gram launches "
+                  f"{launches[-1]} [{card}]", flush=True)
+            check(launches[-1] == per_epoch,
+                  f"{label}: {launches[-1]} launches in epoch {e + 1}, expected {per_epoch}")
+        return carries, launches, ms
+
+    with comm.single_rank_group("cuda"):
+        backend = torch.distributed.get_backend()
+        print(f"process group: backend {backend}, world size "
+              f"{torch.distributed.get_world_size()}", flush=True)
+        check(backend == "nccl", f"the parallel layer runs over {backend}, not NCCL")
+
+        # --- data-parallel kin40k: the main path ---------------------------
+        ds = runner.load_data("synthetic", seed)
+        theta0, Xu, Xb, yb, prior = runner.setup(ds, M_IND, BATCH, N_TRAIN, seed, "cuda")
+        Xs, ys = shard_batched_data(Xb, yb)
+        check(Xs.shape == Xb.shape, "one rank's shard is not the whole batch")
+
+        def dp_epoch(kernel):
+            def fn(c):
+                return fit_kin40k_fast_dp(kernel, theta0, Xu, Xs, ys, prior, runner.W_VAL, 1,
+                                          resume_state=c)[3]
+            return fn
+
+        dp_carries, dp_launches, dp_ms = timed_epochs("kin40k DP (NCCL, 1 rank)", dp_epoch(kern),
+                                                      LAUNCHES_PER_EPOCH)
+        out["dp_kin40k"] = dict(launches=sum(dp_launches), launches_per_epoch=dp_launches,
+                                epoch_host_ms=dp_ms)
+        c_sd = c_pl = None
+        eq, kp, sd_ms = [], [], []
+        for e in range(EPOCHS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            *_, c_sd = fit_kin40k_fast(kern, theta0, Xu, Xb, yb, prior, runner.W_VAL, 1,
+                                       resume_state=c_sd)
+            torch.cuda.synchronize()
+            sd_ms.append((time.perf_counter() - t) * 1e3)
+            eq.append(_held_equal(f"kin40k DP epoch {e + 1} vs fit_kin40k_fast",
+                                  _flat_carry(dp_carries[e], dp_carries[e].covs64[0]),
+                                  _flat_carry(c_sd, c_sd.covs64[0])))
+            c_pl = dp_epoch(plain)(c_pl)
+            kp.append(_held(f"kin40k DP epoch {e + 1}", (dp_carries[e].theta,
+                                                          dp_carries[e].xi, dp_carries[e].prec),
+                            (c_pl.theta, c_pl.xi, c_pl.prec), ("theta", "xi", "Lambda")))
+        print(f"kin40k epochs 2-{EPOCHS}: DP over NCCL (1 rank) {np.mean(dp_ms[1:]):.1f} ms, "
+              f"fit_kin40k_fast {np.mean(sd_ms[1:]):.1f} ms (host clock, mean) [{card}]",
+              flush=True)
+        out["dp_kin40k"].update(vs_single_device=eq, kernel_vs_plain=kp,
+                                single_device_epoch_host_ms=sd_ms)
+
+        # --- data-parallel banana ------------------------------------------
+        bds = brunner.load_data("synthetic", seed)
+        btheta0, bXu, bXb, byb, pv, pw = brunner.setup(bds, M_BAN, BATCH_BAN, seed, "cuda")
+        c0 = init_banana_state(plain, btheta0, bXu, pv, pw)
+        bXs, bys = shard_batched_data(bXb, byb)
+
+        def banana_dp(c):
+            return fit_banana_fast_dp(kern, btheta0, bXu, bXs, bys, pv, pw, 1,
+                                      resume_state=c0 if c is None else c)[3]
+
+        b_carries, b_launches, b_ms = timed_epochs("banana DP (NCCL, 1 rank)", banana_dp,
+                                                   BANANA_LAUNCHES_PER_EPOCH)
+        c_sd, beq, bsd_ms = c0, [], []
+        for e in range(EPOCHS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            *_, c_sd = fit_banana_fast(kern, btheta0, bXu, bXb, byb, pv, pw, 1, resume_state=c_sd)
+            torch.cuda.synchronize()
+            bsd_ms.append((time.perf_counter() - t) * 1e3)
+            a, b = ((_flat_carry(c, c.cov_v, w_shape=c.w_shape, w_rate=c.w_rate))
+                    for c in (b_carries[e], c_sd))
+            beq.append(_held_equal(f"banana DP epoch {e + 1} vs fit_banana_fast", a, b))
+        print(f"banana epochs 2-{EPOCHS}: DP over NCCL (1 rank) {np.mean(b_ms[1:]):.1f} ms, "
+              f"fit_banana_fast {np.mean(bsd_ms[1:]):.1f} ms (host clock, mean) [{card}]",
+              flush=True)
+        out["dp_banana"] = dict(launches=sum(b_launches), launches_per_epoch=b_launches,
+                                epoch_host_ms=b_ms, vs_single_device=beq,
+                                single_device_epoch_host_ms=bsd_ms)
+
+        # --- tensor-parallel sweep and prediction --------------------------
+        X, y = Xb.reshape(-1, D_IN), yb.reshape(-1)
+        X_test = torch.as_tensor(ds.x_test, dtype=torch.float32, device="cuda")
+        lam = float(gershgorin_lambda_min(torch.eye(M_IND, dtype=torch.float64) / TP_PRIOR_VAR))
+        Xu_loc = shard_inducing(Xu)
+        se_gram_cuda.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mu_t, cov_t, xi_t, prec_t = tp_regression_sweep(
+            kern, theta0, Xu_loc, X, y, TP_PRIOR_VAR, runner.W_VAL, ns_iters=TP_NS_ITERS,
+            lambda_min=lam, ir_rounds=TP_IR_ROUNDS)
+        mean_t, var_t = tp_predict(kern, theta0, Xu_loc, mu_t, runner.W_VAL, X_test)
+        torch.cuda.synchronize()
+        tp_ms = (time.perf_counter() - t) * 1e3
+        tp_launches = se_gram_cuda.launches
+        with torch.no_grad():
+            K = kern(theta0, Xu, X).double()
+            xi_d = runner.W_VAL * (K @ y.double())
+            prec_d = sym(torch.eye(M_IND, dtype=torch.float64, device="cuda") / TP_PRIOR_VAR
+                         + runner.W_VAL * (K @ K.T))
+            cov_d = spd_inverse(prec_d, iters=TP_NS_ITERS, lambda_min=lam)
+            mu_d = ir_solve(prec_d, xi_d, cov_d, rounds=TP_IR_ROUNDS)
+            mean_d = kern(theta0, Xu, X_test).double().T @ mu_t
+        # μ: the dense solve's refinement keeps its iterate where a round
+        # does not shrink the residual, the sweep's (as JAX's) does not; at
+        # the f64 floor the two differ by up to κ(Λ)·ε, κ bounded by
+        # ‖Λ‖∞/λ_min(prior)
+        kappa = float(prec_d.abs().sum(1).max()) / lam
+        mu_lim = 10.0 * kappa * float(np.finfo(np.float64).eps)
+        tp_d = _field_diffs({"xi": xi_t, "prec": prec_t, "cov": cov_t, "mean": mean_t},
+                            {"xi": xi_d, "prec": prec_d, "cov": cov_d, "mean": mean_d})
+        tp_mu = _field_diffs({"mu": mu_t}, {"mu": mu_d})["mu"]
+        print(f"TP sweep + prediction (M={M_IND}, N={X.shape[0]}, N*={X_test.shape[0]}, NCCL, "
+              f"1 rank): {tp_ms:.1f} ms host clock, se_gram launches {tp_launches}; vs the dense "
+              f"sweep: xi {tp_d['xi']:.3e}, Lambda {tp_d['prec']:.3e}, Sigma {tp_d['cov']:.3e}, "
+              f"mean {tp_d['mean']:.3e} (limit {PAR_RTOL:.0e}), mu {tp_mu:.3e} (limit "
+              f"{mu_lim:.3e} = 10·κ·ε, κ ≤ {kappa:.3e}) [{card}]", flush=True)
+        check(tp_launches == 2, f"the TP sweep and prediction launched {tp_launches} Grams, not 2")
+        check(max(tp_d.values()) <= PAR_RTOL and tp_mu <= mu_lim,
+              f"the TP sweep disagrees with the dense sweep: {tp_d}, mu {tp_mu}")
+        check(bool(torch.all(var_t == 1.0 / runner.W_VAL)), "tp_predict's variance")
+        out["tp"] = dict(launches=tp_launches, host_ms=tp_ms, vs_dense=tp_d, mu_rel=tp_mu,
+                         mu_limit=mu_lim)
+
+        # --- sequence-parallel GPSSM smoothing -----------------------------
+        s = prunner.setup("cuda", torch.float32)
+        chain = (s["P"], s["prior_x0_mean"], s["prior_x0_cov"], s["prior_v"], prunner.PRIOR_W_DF,
+                 s["prior_W_scale"])
+        ys_loc = shard_chain_data(s["y_train"])
+        se_gram_cuda.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st_sp, fe_sp = gpssm_vmp_sp(kern, s["theta0"], s["Xu"], ys_loc, *chain,
+                                    n_iters=SP_SWEEPS)
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t) * 1e3
+        sp_launches = se_gram_cuda.launches
+        st_j, fe_j = gpssm_vmp(kern, s["theta0"], s["Xu"], s["y_train"], *chain,
+                               n_iters=SP_SWEEPS)
+        print(f"SP smoother (T={GP_T}, M={GP_M}, {SP_SWEEPS} sweeps, float32, NCCL, 1 rank): "
+              f"{sp_ms:.1f} ms host clock, se_gram launches {sp_launches} (expected "
+              f"{SP_LAUNCHES}) [{card}]", flush=True)
+        check(sp_launches == SP_LAUNCHES, f"the SP smoother launched {sp_launches} Grams")
+        check(_finite_state(st_sp) and bool(torch.isfinite(fe_sp)), "non-finite SP state")
+        # at world size 1 the SP smoother is the Jacobi sweep op for op
+        sp_eq = _held_equal("SP smoother vs gpssm_vmp", {**st_sp._asdict(), "fe": fe_sp},
+                            {**st_j._asdict(), "fe": fe_j})
+        out["sp"] = dict(launches=sp_launches, host_ms=sp_ms, vs_single_device=sp_eq)
+
+    out["collectives_on_nccl"] = ["all_reduce SUM", "all_reduce MAX", "all_gather"]
+    out["p2p_at_world_size_1"] = "none posted (ring shifts and halos skip a ring of one)"
+    out["launches"] = (out["dp_kin40k"]["launches"] + out["dp_banana"]["launches"] + tp_launches
+                       + sp_launches)
+    out["launches_by_path"] = {"dp_kin40k_nccl": out["dp_kin40k"]["launches"],
+                               "dp_banana_nccl": out["dp_banana"]["launches"],
+                               "tp_sweep_predict_nccl": tp_launches,
+                               "sp_gpssm_nccl": sp_launches}
+    say("phase 15/15 parallel layer (world size 1 over NCCL): done")
     return out
 
 
@@ -2646,6 +2926,7 @@ def main(argv=None) -> int:
         gpssm = phase_gpssm(args.seed, card)
         gplvm = phase_gplvm(args.seed, card)
         legacy = phase_legacy(card)
+        parallel = phase_parallel(args.seed, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -2663,7 +2944,8 @@ def main(argv=None) -> int:
                      + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
                      + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
-                     + gpssm["launches"] + gplvm["launches"] + legacy["launches"]),
+                     + gpssm["launches"] + gplvm["launches"] + legacy["launches"]
+                     + parallel["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -2678,7 +2960,7 @@ def main(argv=None) -> int:
                              "fitc_f32": vsgp["fitc"]["launches"],
                              "multi_objective_f32": multi["objective"]["launches"],
                              **gpssm["launches_by_path"], **gplvm["launches_by_path"],
-                             **legacy["launches_by_path"]},
+                             **legacy["launches_by_path"], **parallel["launches_by_path"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -2716,6 +2998,7 @@ def main(argv=None) -> int:
         "gpssm": {k: v for k, v in gpssm.items() if k != "shapes"},
         "gplvm": {k: v for k, v in gplvm.items() if k != "shapes"},
         "legacy_gp": legacy,
+        "parallel": {k: v for k, v in parallel.items() if k != "launches_by_path"},
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

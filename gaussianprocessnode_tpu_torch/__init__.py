@@ -11,7 +11,8 @@ trainers and serving paths; the toy regression and classification
 workloads with the UniSGP node, quadrature, Ψ-statistics, batch VMP and the
 L-BFGS trainers; the VSGP and FITC/SoR/DTC baselines; the MultiSGP node;
 the GPSSM family with the pendulum runner; the GPLVM and the model
-front-end; the legacy-notebook families with their runner):
+front-end; the legacy-notebook families with their runner; data, tensor
+and sequence parallelism over torch.distributed):
     config                 jitter constants, dtype and the f32 precision pin
     dists                  Gaussian / MvGaussian / MvGaussianNat /
                            GammaShapeRate / Wishart / WishartFast /
@@ -62,7 +63,16 @@ front-end; the legacy-notebook families with their runner):
                            and variational EM (implicit fixed-point
                            gradient), model banks
     serve                  ``SGPRegressor``, ``SGPClassifier``, ``GPSSMFilter``,
-                           ``serve_fused``, throughput timers
+                           ``serve_fused``, ``shard_requests``, throughput
+                           timers
+    parallel.comm          process groups, the collectives (gloo / NCCL),
+                           ``spawn_ranks``, ``single_rank_group``
+    parallel.sharding      the data-parallel sweep, step and kin40k / banana
+                           trainers
+    parallel.tensor_parallel
+                           the inducing-dimension (ring) sweep and prediction
+    parallel.seq_parallel  the time-sharded GPSSM Jacobi smoother
+    parallel.dryrun        one step of every parallel path on N ranks
     convert                the JAX package's arrays → a serving handle, a
                            trainer carry, a batch VMP result, VSGP / FITC
                            parameters or their AdaMax state, a GPSSM or UT
@@ -73,6 +83,10 @@ front-end; the legacy-notebook families with their runner):
                            shapes, the pendulum data and its inducing grid
     utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
+    utils.checkpoint       save / load a tree of tensors (one .npz)
+    utils.configs, utils.logging
+                           the workloads' configurations, a metrics logger
+    utils.driver           ``chunked_run``
     utils.optim            bare optax AdaMax at Flux's defaults, optax's
                            Adam, scipy L-BFGS-B and Nelder–Mead over
                            torch objectives
@@ -86,6 +100,8 @@ front-end; the legacy-notebook families with their runner):
     experiments.pendulum   the pendulum GPSSM run on the card
     experiments.gplvm      the GPLVM run on the card
     experiments.legacy_gp  the legacy-notebook workloads on the card
+    experiments.pit_bench  long-chain smoothing, parallel in time against
+                           Jacobi
 """
 
 from . import config as config  # noqa: F401  (side effect: precision pin)

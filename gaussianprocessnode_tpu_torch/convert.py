@@ -10,7 +10,9 @@ and rate (probit classification). Given those as numpy arrays (as
 the port's serving handles, so the JAX and the torch handle compute the
 same predictions from one set of arrays. :func:`fast_state_from_jax` and
 :func:`banana_state_from_jax` turn a JAX trainer's carry into the port's,
-so the port resumes a JAX run and both compute the same next epoch.
+so the port resumes a JAX run and both compute the same next epoch;
+:func:`fast_dp_state_from_jax` does so for the data-parallel kin40k
+trainer's carry (``parallel/sharding.py::fit_kin40k_fast_dp``).
 :func:`vmp_state_from_jax` does the same for a batch VMP result and θ of
 the toy trainers. :func:`svgp_params_from_jax`, :func:`sparse_gp_params_from_jax`
 and :func:`adamax_state_from_jax` carry the VSGP and FITC trainers'
@@ -44,7 +46,7 @@ from .ops.kernels import Kernel
 from .serve import SGPClassifier, SGPRegressor
 
 __all__ = ["serving_state_from_jax", "classifier_state_from_jax", "fast_state_from_jax",
-           "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
+           "fast_dp_state_from_jax", "banana_state_from_jax", "vmp_state_from_jax", "svgp_params_from_jax",
            "sparse_gp_params_from_jax", "adamax_state_from_jax", "gpssm_state_from_jax",
            "ut_state_from_jax", "gplvm_state_from_jax", "pad_state_from_jax",
            "fullcov_state_from_jax"]
@@ -89,13 +91,14 @@ def _tensor(device):
     return t
 
 
-def _optimizer_state(opt_state, t) -> dict:
+def _optimizer_state(opt_state, t, mesh_size=1) -> dict:
     """The port's optimizer dict from the optax state of the trainers'
     chain, ``(ZeroNansState, EmptyState, (ScaleByAdamState, EmptyState |
-    ScaleByScheduleState))``."""
+    ScaleByScheduleState))``; the AdaMax moments divided by ``mesh_size``
+    (see :func:`fast_dp_state_from_jax`)."""
     zero_nans, _, (adam, lr_state) = opt_state
     opt = {"found_nan": t(zero_nans.found_nan), "count": t(adam.count),
-           "mu": t(adam.mu), "nu": t(adam.nu)}
+           "mu": t(adam.mu) / mesh_size, "nu": t(adam.nu) / mesh_size}
     if "count" in getattr(lr_state, "_fields", ()):  # a decaying schedule
         opt["lr_count"] = t(lr_state.count)
     return opt
@@ -112,16 +115,39 @@ def fast_state_from_jax(carry, device="cuda") -> FastCarry:
                      t(kuu_inv))
 
 
-def banana_state_from_jax(carry, device="cuda") -> MinibatchCarry:
+def fast_dp_state_from_jax(carry, device="cuda", mesh_size=1) -> FastCarry:
+    """The port's ``fit_kin40k_fast_dp`` carry from the JAX one (the 6-tuple
+    of ``init_kin40k_fast_dp_state``: ``(ξ, Λ, cov64, θ, opt_state,
+    kuu_inv)``, numpy leaves): the one-group :class:`FastCarry` of
+    ``fit_kin40k_fast``, the (M, M) warm inverse as its one group,
+    ``opt_state`` as the port's optimizer dict; replicated, so every rank
+    takes the same. Dtypes are kept.
+
+    ``mesh_size``: the devices of the JAX mesh that made the carry. The JAX
+    data-parallel trainers psum a θ-gradient that ``jax.grad`` has already
+    summed over the mesh (the cotangent of a replicated θ), so their AdaMax
+    moments are ``mesh_size`` times the full-batch ones (θ's path is the
+    same: AdaMax's step is invariant to the gradient's scale, up to its
+    eps). The port all-reduces the local gradients once; the moments are
+    divided back here."""
+    xi, prec, cov64, theta, opt_state, kuu_inv = carry
+    t = _tensor(device)
+    return FastCarry(t(xi), t(prec), t(np.asarray(cov64)[None]), t(theta),
+                     _optimizer_state(opt_state, t, mesh_size), t(kuu_inv))
+
+
+def banana_state_from_jax(carry, device="cuda", mesh_size=1) -> MinibatchCarry:
     """The port's :class:`MinibatchCarry` from the JAX ``MinibatchCarry``
     (of ``fit_banana_fast``, ``fit_banana`` or ``fit_kin40k``), with numpy
     arrays for leaves: field for field, ``opt_state`` (``default_optimizer``'s
     chain, ``(ZeroNansState, EmptyState, (ScaleByAdamState, EmptyState))``)
-    as the port's optimizer dict. Dtypes are kept."""
+    as the port's optimizer dict. Dtypes are kept. For a carry of
+    ``fit_banana_fast_dp`` on a JAX mesh of ``mesh_size`` devices, the AdaMax
+    moments are divided by it, as in :func:`fast_dp_state_from_jax`."""
     xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
     t = _tensor(device)
     return MinibatchCarry(t(xi), t(prec), t(cov), t(kuu_inv), t(theta),
-                          _optimizer_state(opt_state, t), t(w_shape), t(w_rate))
+                          _optimizer_state(opt_state, t, mesh_size), t(w_shape), t(w_rate))
 
 
 def vmp_state_from_jax(result, theta, device="cuda"):

@@ -19,7 +19,15 @@ noise swamps the subspace the Laplace in-message needs; the JAX package
 measured latent 1-NN accuracy fall from 0.875 to 0.67–0.77 in f32).
 
     python -m gaussianprocessnode_tpu_torch.experiments.gplvm [N] [--nm]
-        [--data synthetic|oil] [--seed S] [--device cuda] [--json=PATH]
+        [--data synthetic|oil] [--seed S] [--chunk=K] [--ckpt=PATH] [--device cuda]
+        [--json=PATH]
+
+``--chunk=K`` runs the gradient epochs in chunks of K (one host read
+each), and with K < 30 the final inference as five warm-started 6-sweep
+blocks (the same 30 sweeps); ``--ckpt=PATH`` saves θ, the mean-field
+state, the epochs done, the free-energy trace and the seconds so far after
+every chunk (``utils/checkpoint.py``), and a run started with an existing
+PATH resumes from it.
 
 ``N`` is the gradient epochs (default 25), or the Nelder–Mead iterations
 with ``--nm``. ``--data synthetic`` (the default) draws
@@ -36,14 +44,16 @@ writes the line to PATH.
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from ..infer.gplvm import fit_gplvm_grad, gplvm_vmp
+from ..infer.gplvm import fit_gplvm_grad, gplvm_init_state, gplvm_vmp
 from ..ops.kernels import Kernel, softplus
+from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.datasets import oil_flow, oil_flow_synthetic
 from ..utils.optim import nelder_mead
 from ..utils.profiling import card_info, synchronize
@@ -101,11 +111,14 @@ def _per_sweep(counts, sweeps):
 
 def run(nm_iters: int = 25, n_iters: int = 6, grad: bool = True, grad_epochs: int = 25,
         verbose: bool = True, data: str = "synthetic", seed: int = 0,
-        device: str = "cuda") -> dict:
-    """Fit θ (gradient EM by default, Nelder–Mead with ``grad=False``), run
-    the final inference (30 sweeps) and score the latents. Returns the
-    result dict that the command line prints, plus ``latents`` and
-    ``labels``."""
+        device: str = "cuda", chunk: int | None = None,
+        checkpoint_path: str | None = None) -> dict:
+    """Fit θ (gradient EM by default, in chunks of ``chunk`` epochs,
+    checkpointed to ``checkpoint_path`` after each and resumed from it;
+    Nelder–Mead with ``grad=False``), run the final inference (30 sweeps;
+    five warm-started 6-sweep blocks when ``chunk`` < 30) and score the
+    latents. Returns the result dict that the command line prints, plus
+    ``latents`` and ``labels``."""
     dev = torch.device(device)
     Y_np, labels = load_data(data, seed)
     kernel, theta0, Xu, Y, Xm, mean_X = setup(Y_np, device=dev)
@@ -113,10 +126,33 @@ def run(nm_iters: int = 25, n_iters: int = 6, grad: bool = True, grad_epochs: in
 
     synchronize(dev)
     t0 = time.perf_counter()
+    prev_s = 0.0  # a resumed run's seconds before this process
     if grad:
-        theta, _, fe_c = fit_gplvm_grad(kernel, theta0, Xu, Y, Xm, epochs=grad_epochs,
-                                        n_iters=n_iters, counts=counts, mstep_counts=mcounts)
-        history = fe_c.tolist()
+        chunk_g = grad_epochs if chunk is None else chunk
+        # an explicit cold start: every chunk, the first included, resumes
+        theta, state = theta0, gplvm_init_state(kernel, theta0, Xu, Y, Xm)
+        fe_all = np.zeros(grad_epochs)
+        done = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            ck = load_pytree(checkpoint_path, {
+                "theta": theta0, "state": state, "done": np.zeros((), np.int64),
+                "fe": fe_all, "hyperopt_seconds": np.zeros(())})
+            theta, state = ck["theta"], ck["state"]
+            done, prev_s = int(ck["done"]), float(ck["hyperopt_seconds"])
+            fe_all[:done] = ck["fe"].numpy()[:done]  # the run may be longer than the saved one
+        while done < grad_epochs:
+            n = min(chunk_g, grad_epochs - done)
+            theta, state, fe_c = fit_gplvm_grad(kernel, theta, Xu, Y, Xm, epochs=n,
+                                                n_iters=n_iters, init_state=state, counts=counts,
+                                                mstep_counts=mcounts)
+            fe_all[done:done + n] = fe_c.cpu().numpy()
+            done += n
+            if checkpoint_path:
+                save_pytree(checkpoint_path, {
+                    "theta": theta, "state": state, "done": np.asarray(done, np.int64),
+                    "fe": fe_all,
+                    "hyperopt_seconds": np.asarray(prev_s + time.perf_counter() - t0)})
+        history = fe_all.tolist()
         fe_val = history[-1] if history else float("nan")
         sweeps = grad_epochs * n_iters
     else:
@@ -126,10 +162,17 @@ def run(nm_iters: int = 25, n_iters: int = 6, grad: bool = True, grad_epochs: in
         theta, fe_val, history = nelder_mead(fe_obj, theta0, maxiter=nm_iters)
         sweeps = len(history) * n_iters
     synchronize(dev)
-    hyperopt_s = time.perf_counter() - t0
+    hyperopt_s = prev_s + time.perf_counter() - t0
 
     t_fi = time.perf_counter()
-    state, fe = gplvm_vmp(kernel, theta, Xu, Y, Xm, n_iters=FINAL_SWEEPS)
+    if chunk is not None and chunk < FINAL_SWEEPS:
+        # the same 30 sweeps as five warm-started blocks of 6
+        state = gplvm_init_state(kernel, theta, Xu, Y, Xm)
+        for _ in range(FINAL_SWEEPS // 6):
+            state, fe = gplvm_vmp(kernel, theta, Xu, Y, Xm, n_iters=6, init_state=state)
+            float(fe)
+    else:
+        state, fe = gplvm_vmp(kernel, theta, Xu, Y, Xm, n_iters=FINAL_SWEEPS)
     synchronize(dev)
     final_infer_s = time.perf_counter() - t_fi
     Z = state.x_means.cpu().numpy()
@@ -168,11 +211,13 @@ def main(argv=None) -> int:
     ap.add_argument("--nm", action="store_true", help="the reference's Nelder-Mead hyperopt")
     ap.add_argument("--data", choices=("synthetic", "oil"), default="synthetic")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk", type=int, help="gradient epochs per chunk")
+    ap.add_argument("--ckpt", metavar="PATH", help="checkpoint after every chunk; resume from it")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", metavar="PATH", help="also write the result line to PATH")
     args = ap.parse_args(argv)
     res = run(nm_iters=args.count, grad_epochs=args.count, grad=not args.nm, data=args.data,
-              seed=args.seed, device=args.device)
+              seed=args.seed, device=args.device, chunk=args.chunk, checkpoint_path=args.ckpt)
     line = json.dumps({k: v for k, v in res.items() if k not in ("latents", "labels")})
     print(line, flush=True)
     if args.json:

@@ -1,11 +1,16 @@
 """kin40k large-scale regression, on the card.
 
-Counterpart of ``experiments/kin40k.py::run``, in one process and without
-``chunked_run``: N = 10,000 training and 30,000 test points in 8-D,
-M = 600 inducing inputs drawn from the training rows, minibatches of 500
-(20 batches), w fixed at 1e4, ARD-SE kernel (9 θ, softplus) through the
-hand-written CUDA Gram, ``fit_kin40k_fast`` for ``--epochs`` epochs, then
-the predictive means at the test inputs and their SMSE. ``--faithful``
+Counterpart of ``experiments/kin40k.py::run``: N = 10,000 training and
+30,000 test points in 8-D, M = 600 inducing inputs drawn from the training
+rows (or given: ``--xu PATH``, an array file or a JLD file, e.g. the
+reference's saved draw), minibatches of 500 (20 batches), w fixed at 1e4,
+ARD-SE kernel (9 θ, softplus) through the hand-written CUDA Gram,
+``fit_kin40k_fast`` for ``--epochs`` epochs (``--stats-refreshes`` q(v)
+refreshes per epoch, learning rate ``--learning-rate``), then the
+predictive means at the test inputs and their SMSE. As in the JAX runner,
+the epochs run through ``utils/driver.py::chunked_run``: in chunks of 100
+epochs, and with ``--faithful`` of max(10, ⌊50·34/budget⌋), each chunk
+resumed from the last one's carry and ended by one host read. ``--faithful``
 trains with the per-batch ``fit_kin40k`` instead and, as the JAX runner
 does, in float64, whose Grams take the plain route by dtype
 (``ops/se_gram.py::se_gram_auto``); ``run(faithful=True,
@@ -14,6 +19,7 @@ dtype=torch.float32)`` keeps it in float32, through the kernel.
 default).
 
     python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful [--ns-budget 60]]
+        [--xu PATH] [--learning-rate LR] [--stats-refreshes G]
 
 prints one JSON line: ``value`` (seconds for the epochs, host clock
 between two ``torch.cuda.synchronize()`` calls), ``smse``, ``device`` (the
@@ -33,17 +39,36 @@ import torch
 
 from ..dists import MvGaussianNat
 from ..infer.batch_vmp import predict_out
-from ..infer.minibatch import KIN40K_BATCH_NS_ITERS, fit_kin40k, fit_kin40k_fast
+from ..infer.minibatch import (KIN40K_BATCH_NS_ITERS, fit_kin40k, fit_kin40k_fast,
+                               init_kin40k_fast_state)
 from ..ops.kernels import Kernel, invsoftplus
 from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
 from ..utils.datasets import kin40k, kin40k_synthetic
+from ..utils.driver import chunked_run
 from ..utils.metrics import smse
 from ..utils.profiling import card_info, synchronize
 
-__all__ = ["W_VAL", "load_data", "setup", "run"]
+__all__ = ["W_VAL", "FAST_CHUNK", "faithful_chunk", "load_data", "load_xu", "setup", "run"]
 
 W_VAL = 1e4  # kin40k's fixed noise precision
+FAST_CHUNK = 100  # the fast trainer's epochs per chunk
+
+
+def faithful_chunk(ns_budget: int) -> int:
+    """The per-batch trainer's epochs per chunk, scaled by its budget as
+    the JAX runner scales them: max(10, ⌊50·34/budget⌋)."""
+    return max(10, int(50 * 34 / ns_budget))
+
+
+def load_xu(path: str) -> np.ndarray:
+    """Inducing inputs (M, 8) from a JLD file (``utils/jld.py``) or an
+    array file numpy reads (.npy)."""
+    if path.endswith(".jld"):
+        from ..utils.jld import load_jld
+
+        return np.asarray(load_jld(path))
+    return np.load(path)
 
 
 def load_data(data: str = "synthetic", seed: int = 1, n_test: int = 30_000):
@@ -57,16 +82,20 @@ def load_data(data: str = "synthetic", seed: int = 1, n_test: int = 30_000):
 
 
 def setup(ds, m_inducing=600, batch_size=500, n_train=10_000, seed=1, device="cuda",
-          dtype=torch.float32):
+          dtype=torch.float32, xu=None):
     """The trainer's arguments, as ``experiments/kin40k.py::run`` builds
     them: batched training data, M inducing inputs drawn from the training
-    rows by ``seed``, θ0 = softplus⁻¹(1), the prior N(0, 50·I) on v, made in
-    ``dtype`` on ``device``."""
+    rows by ``seed`` (or ``xu``, given; M is then its rows), θ0 =
+    softplus⁻¹(1), the prior N(0, 50·I) on v, made in ``dtype`` on
+    ``device``."""
     dev = torch.device(device)
     Xtr = torch.as_tensor(ds.x_train[:n_train], dtype=dtype, device=dev)
     ytr = torch.as_tensor(ds.y_train[:n_train], dtype=dtype, device=dev)
-    pos = np.random.default_rng(seed).permutation(n_train)[:m_inducing]
-    Xu = torch.as_tensor(ds.x_train[pos], dtype=dtype, device=dev)
+    if xu is None:
+        pos = np.random.default_rng(seed).permutation(n_train)[:m_inducing]
+        xu = ds.x_train[pos]
+    Xu = torch.as_tensor(np.asarray(xu), dtype=dtype, device=dev)
+    m_inducing = Xu.shape[0]
     B = n_train // batch_size
     Xb = Xtr[: B * batch_size].reshape(B, batch_size, -1)
     yb = ytr[: B * batch_size].reshape(B, batch_size)
@@ -93,18 +122,21 @@ def predict(kernel, theta, Xu, qv_nat, cov64, X_test):
 def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
         data: str = "synthetic", device: str = "cuda", faithful: bool = False,
-        dtype=None, ns_budget: int = KIN40K_BATCH_NS_ITERS) -> dict:
-    """Train θ for ``epochs`` epochs (learning rate 1e-3) with
-    ``fit_kin40k_fast`` (one statistics refresh per epoch) or, with
-    ``faithful``, ``fit_kin40k`` at ``ns_budget``, and score the test set.
-    ``dtype`` defaults to float32, and to float64 with ``faithful``.
-    Returns the result dict that the command line prints."""
+        dtype=None, ns_budget: int = KIN40K_BATCH_NS_ITERS, xu=None,
+        learning_rate: float = 0.001, stats_refreshes: int = 1) -> dict:
+    """Train θ for ``epochs`` epochs at ``learning_rate`` with
+    ``fit_kin40k_fast`` (``stats_refreshes`` statistics refreshes per
+    epoch) or, with ``faithful``, ``fit_kin40k`` at ``ns_budget``, in
+    chunks through ``chunked_run``, and score the test set. ``xu``: the
+    inducing inputs (default: M training rows drawn by ``seed``). ``dtype``
+    defaults to float32, and to float64 with ``faithful``. Returns the
+    result dict that the command line prints."""
     dev = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if faithful else torch.float32
     ds = load_data(data, seed, n_test)
     theta0, Xu, Xb, yb, prior_v = setup(ds, m_inducing, batch_size, n_train, seed, dev,
-                                        dtype)
+                                        dtype, xu)
     kernel = Kernel("se", transform="softplus", use_kernel=True)
     if dev.type == "cuda":
         from ..ops.se_gram import _kernel_fn
@@ -114,12 +146,19 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
     se_gram_cuda.launches = 0
     t0 = time.perf_counter()
     if faithful:
-        theta, qv_nat, _ = fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, epochs,
-                                      ns_budget=ns_budget)
+        theta, qv_nat, _ = chunked_run(
+            lambda e, st: fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, e,
+                                     learning_rate=learning_rate, resume_state=st,
+                                     ns_budget=ns_budget),
+            epochs, faithful_chunk(ns_budget), None)
         cov64 = None
     else:
-        theta, qv_nat, cov64, _ = fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v,
-                                                  W_VAL, epochs)
+        groups = max(1, min(stats_refreshes, Xb.shape[0]))
+        theta, qv_nat, cov64, _ = chunked_run(
+            lambda e, st: fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, e,
+                                          learning_rate=learning_rate,
+                                          stats_refreshes=stats_refreshes, resume_state=st),
+            epochs, FAST_CHUNK, init_kin40k_fast_state(theta0, prior_v, Xu.shape[0], groups))
     synchronize(dev)
     seconds = time.perf_counter() - t0
     launches = se_gram_cuda.launches
@@ -139,6 +178,9 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         "data": data,
         "seed": seed,
         "ns_budget": ns_budget if faithful else None,
+        "learning_rate": learning_rate,
+        "stats_refreshes": None if faithful else stats_refreshes,
+        "m_inducing": Xu.shape[0],
         "theta_softplus": torch.logaddexp(theta, torch.zeros_like(theta)).tolist(),
     }
 
@@ -152,9 +194,14 @@ def main(argv=None) -> int:
                     help="the per-batch schedule fit_kin40k, in float64")
     ap.add_argument("--ns-budget", type=int, default=KIN40K_BATCH_NS_ITERS,
                     help="fit_kin40k's Newton-Schulz iterations per batch (--faithful)")
+    ap.add_argument("--xu", metavar="PATH", help="inducing inputs (.npy or .jld)")
+    ap.add_argument("--learning-rate", type=float, default=0.001)
+    ap.add_argument("--stats-refreshes", type=int, default=1,
+                    help="fit_kin40k_fast's q(v) statistics refreshes per epoch")
     args = ap.parse_args(argv)
     out = run(epochs=args.epochs, seed=args.seed, data=args.data, faithful=args.faithful,
-              ns_budget=args.ns_budget)
+              ns_budget=args.ns_budget, xu=None if args.xu is None else load_xu(args.xu),
+              learning_rate=args.learning_rate, stats_refreshes=args.stats_refreshes)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -12,13 +12,23 @@ L-BFGS steps (``infer/training.py::lbfgs_solve``) by default, or 100 bare
 AdaMax steps (``use_lbfgs=False``; ``--faithful`` is the reference's
 schedule: lr 0.002, constant, each E-step from the fresh initialisation).
 Then the final smoothing (150 Jacobi sweeps; ``--pit``: 4 parallel-in-time
-sweeps and 30 Jacobi sweeps, ``infer/pit_gpssm.py``), the 1-step-ahead
+sweeps and 30 Jacobi sweeps, ``infer/pit_gpssm.py``; ``--sp=N``: the 150
+Jacobi sweeps sequence-parallel, ``parallel/seq_parallel.py::gpssm_vmp_sp``
+on N ranks spawned after the hyperparameter epochs, one card each on the
+card, gloo ranks with ``--device cpu``; N must divide the 300 steps, and a
+bare ``--sp`` is 4), the 1-step-ahead
 filter over the 400 test steps, and the UT smoother with the known
 dynamics (150 sweeps, float64) as the baseline, each scored by SMSE
 against the true states.
 
     python -m gaussianprocessnode_tpu_torch.experiments.pendulum [EPOCHS] [--f32] [--pit]
-        [--faithful] [--device cpu] [--json=PATH]
+        [--sp[=N]] [--faithful] [--chunk=K] [--ckpt=PATH] [--device cpu] [--json=PATH]
+
+``--chunk=K`` runs the epochs in chunks of K (one host read each);
+``--ckpt=PATH`` saves θ, the optimizer and E-step state, the epochs done,
+the free-energy trace and the seconds so far to PATH after every chunk
+(``utils/checkpoint.py``), and a run started with an existing PATH resumes
+from it.
 
 prints one JSON line: ``smse_smooth``, ``smse_ut_baseline`` and
 ``smse_predict`` (state 1, state 2), ``fe_trace`` (the free energy of every
@@ -42,12 +52,15 @@ also writes the line to PATH.
 import argparse
 import json
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
 from ..dists import MvGaussianNat
-from ..infer.chain_smoother import _qv_stats, gpssm_vmp, one_step_ahead
+from ..infer.chain_smoother import (GPSSMState, _cold_state, _qv_stats, gpssm_vmp,
+                                    one_step_ahead)
 from ..infer.pit_gpssm import gpssm_vmp_pit
 from ..infer.training import lbfgs_solve
 from ..infer.ut_smoother import ut_smoother_vmp
@@ -56,12 +69,15 @@ from ..ops.kernels import Kernel, invsoftplus, softplus
 from ..ops.linalg import cholinv, sum_blocks_weighted, sym
 from ..ops.quadrature import SphericalRadial
 from ..ops.se_gram import se_gram_cuda
+from ..parallel import comm
+from ..parallel.seq_parallel import gpssm_vmp_sp, shard_chain_data
+from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.datasets import pendulum, pendulum_inducing
 from ..utils.metrics import smse
 from ..utils.optim import adamax
 from ..utils.profiling import card_info, synchronize
 
-__all__ = ["N_TRAIN", "PRIOR_W_DF", "setup", "vmp", "mstep_stats", "run"]
+__all__ = ["N_TRAIN", "PRIOR_W_DF", "setup", "vmp", "mstep_stats", "check_sp_ranks", "run"]
 
 N_TRAIN = 300
 PRIOR_W_DF = 100.0
@@ -119,12 +135,43 @@ def _pendulum_step(dt):
     return g
 
 
+def _sp_rank(theta, device, dtype, n_iters):
+    """One rank of the sequence-parallel final smoothing: the training
+    chain's block of this rank, ``gpssm_vmp_sp`` from the cold start;
+    returns the gathered state and the free energy on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", comm.rank())
+    s = setup(dev, dtype)
+    state, fe = gpssm_vmp_sp(s["kernel"], theta.to(dev), s["Xu"], shard_chain_data(s["y_train"]),
+                             s["P"], s["prior_x0_mean"], s["prior_x0_cov"], s["prior_v"],
+                             PRIOR_W_DF, s["prior_W_scale"], n_iters=n_iters)
+    return GPSSMState(*(t.cpu() for t in state)), fe.cpu()
+
+
+def check_sp_ranks(sp_ranks: int, device) -> None:
+    """Refuse an ``--sp`` rank count before the hyperparameter epochs:
+    it must divide the 300 training steps, and on the card not exceed the
+    card count."""
+    if sp_ranks > 1 and N_TRAIN % sp_ranks:
+        raise ValueError(f"--sp={sp_ranks}: {N_TRAIN} training steps do not shard evenly over "
+                         f"{sp_ranks} ranks (use a divisor of {N_TRAIN}, e.g. 2, 4, 6, 10)")
+    if sp_ranks > 1 and torch.device(device).type == "cuda" \
+            and sp_ranks > torch.cuda.device_count():
+        raise ValueError(f"--sp={sp_ranks} needs {sp_ranks} cards, this machine has "
+                         f"{torch.cuda.device_count()}")
+
+
 def run(epochs: int = 150, n_iters: int = 25, adamax_steps: int = 100,
         fresh_estep: bool = False, use_lbfgs: bool = True, adamax_lr: float = 0.01,
         adamax_decay: float = 0.2, pit: bool = False, device="cuda",
-        dtype=torch.float64) -> dict:
-    """Train for ``epochs`` epochs, smooth, filter and score. Returns the
+        dtype=torch.float64, sp_ranks: int = 0, chunk: int | None = None,
+        checkpoint_path: str | None = None) -> dict:
+    """Train for ``epochs`` epochs (in chunks of ``chunk``, checkpointed to
+    ``checkpoint_path`` after each and resumed from it), smooth (on
+    ``sp_ranks`` ranks where it is above 1), filter and score. Returns the
     result dict that the command line prints."""
+    check_sp_ranks(sp_ranks, device)
     dev = torch.device(device)
     s = setup(dev, dtype)
     kernel, Xu = s["kernel"], s["Xu"]
@@ -143,32 +190,56 @@ def run(epochs: int = 150, n_iters: int = 25, adamax_steps: int = 100,
                            transition_steps=epochs * adamax_steps)
 
     theta = s["theta0"].clone()
-    if optimizer is not None:
-        opt_state = optimizer.init(theta)
+    opt_state = optimizer.init(theta) if optimizer is not None else {}
     counts = {}
-    fes = []
-    state = None
+    fe_all = np.zeros(epochs)
+    # the first E-step starts cold (None), or after a resume from the
+    # checkpoint's state
+    state, done, prev_s = None, 0, 0.0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        cold = _cold_state(s["y_train"], s["prior_x0_mean"], s["prior_x0_cov"], s["prior_v"],
+                           PRIOR_W_DF, s["prior_W_scale"], 50.0)
+        ck = load_pytree(checkpoint_path, {"theta": theta, "opt_state": opt_state,
+                                           "state": cold, "done": np.zeros((), np.int64),
+                                           "fe": fe_all, "hyperopt_seconds": np.zeros(())})
+        theta, opt_state, state = ck["theta"], ck["opt_state"], ck["state"]
+        done, prev_s = int(ck["done"]), float(ck["hyperopt_seconds"])
+        fe_all[:done] = ck["fe"].numpy()[:done]  # the run may be longer than the saved one
+    chunk = epochs if chunk is None else chunk
     synchronize(dev)
     se_gram_cuda.launches = 0
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        state, fe = vmp(s, theta, n_iters, init_state=None if fresh_estep else state)
-        kw = dict(kernel=kernel, Xu=Xu, method=sr, **mstep_stats(state, M, D))
-        if use_lbfgs:
-            # L-BFGS: the reference's 100 AdaMax steps crawl along the shallow
-            # valley; a curvature-aware step reaches its floor in a few epochs
-            theta, _ = lbfgs_solve(lambda th, kw=kw: neg_log_backwardmess_multi(th, **kw),
-                                   theta, max_steps=adamax_steps // 4, counts=counts)
-        else:
-            for _ in range(adamax_steps):
-                theta = theta + optimizer.update_(grad_multi(theta, **kw), opt_state)
-        fes.append(fe)
+    while done < epochs:
+        fes = []
+        for _ in range(min(chunk, epochs - done)):
+            state, fe = vmp(s, theta, n_iters, init_state=None if fresh_estep else state)
+            kw = dict(kernel=kernel, Xu=Xu, method=sr, **mstep_stats(state, M, D))
+            if use_lbfgs:
+                # L-BFGS: the reference's 100 AdaMax steps crawl along the shallow
+                # valley; a curvature-aware step reaches its floor in a few epochs
+                theta, _ = lbfgs_solve(lambda th, kw=kw: neg_log_backwardmess_multi(th, **kw),
+                                       theta, max_steps=adamax_steps // 4, counts=counts)
+            else:
+                for _ in range(adamax_steps):
+                    theta = theta + optimizer.update_(grad_multi(theta, **kw), opt_state)
+            fes.append(fe)
+        fe_all[done:done + len(fes)] = torch.stack(fes).cpu().numpy()  # the chunk's host read
+        done += len(fes)
+        if checkpoint_path:
+            save_pytree(checkpoint_path, {
+                "theta": theta, "opt_state": opt_state, "state": state,
+                "done": np.asarray(done, np.int64), "fe": fe_all,
+                "hyperopt_seconds": np.asarray(prev_s + time.perf_counter() - t0)})
     synchronize(dev)
-    hyperopt_s = time.perf_counter() - t0
+    hyperopt_s = prev_s + time.perf_counter() - t0
     launches = se_gram_cuda.launches
 
     t0 = time.perf_counter()
-    if pit:
+    if sp_ranks > 1:
+        state, _ = comm.spawn_ranks(_sp_rank, sp_ranks, comm.backend_for(dev), theta.cpu(),
+                                    device, dtype, SMOOTHING_SWEEPS)[0]
+        state = GPSSMState(*(t.to(dev) for t in state))
+    elif pit:
         state, _ = gpssm_vmp_pit(kernel, theta, Xu, s["y_train"], s["P"], s["prior_x0_mean"],
                                  s["prior_x0_cov"], s["prior_v"], PRIOR_W_DF,
                                  s["prior_W_scale"], n_pit=4, n_polish=30)
@@ -189,7 +260,7 @@ def run(epochs: int = 150, n_iters: int = 25, adamax_steps: int = 100,
         ut = ut_smoother_vmp(_pendulum_step(s["dt"]), s["y_train"].to(f64), s["P"].to(f64),
                              s["prior_x0_mean"].to(f64), s["prior_x0_cov"].to(f64),
                              PRIOR_W_DF, s["prior_W_scale"].to(f64), n_iters=SMOOTHING_SWEEPS)
-    fe_trace = torch.stack(fes).tolist() if fes else []
+    fe_trace = fe_all.tolist()
     return {
         "metric": "pendulum_hyperopt_wallclock",
         "value": hyperopt_s,
@@ -210,7 +281,8 @@ def run(epochs: int = 150, n_iters: int = 25, adamax_steps: int = 100,
         "lbfgs_graph_captures": counts.get("graph_captures", 0),
         "host_reads": counts.get("host_reads", 0),
         "gram_launches": launches,
-        "final_smoothing": "pit(4, 30)" if pit else f"jacobi({SMOOTHING_SWEEPS})",
+        "final_smoothing": (f"sp_jacobi({SMOOTHING_SWEEPS}, {sp_ranks} ranks)" if sp_ranks > 1
+                            else "pit(4, 30)" if pit else f"jacobi({SMOOTHING_SWEEPS})"),
         "mstep": "lbfgs" if use_lbfgs else "adamax",
         "device": card_info() if dev.type == "cuda" else {"name": str(dev)},
         "dtype": str(dtype).removeprefix("torch."),
@@ -225,11 +297,20 @@ def main(argv=None) -> int:
     ap.add_argument("--pit", action="store_true", help="parallel-in-time final smoothing")
     ap.add_argument("--faithful", action="store_true",
                     help="the reference's M-step: AdaMax lr 0.002, constant, fresh E-steps")
+    ap.add_argument("--sp", nargs="?", type=int, const=4, default=0, metavar="N",
+                    help="sequence-parallel final smoothing on N ranks (default 4)")
+    ap.add_argument("--chunk", type=int, help="epochs per chunk")
+    ap.add_argument("--ckpt", metavar="PATH", help="checkpoint after every chunk; resume from it")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", metavar="PATH", help="also write the result line to PATH")
     args = ap.parse_args(argv)
+    try:
+        check_sp_ranks(args.sp, args.device)  # now, not after the hyperparameter epochs
+    except ValueError as e:
+        ap.error(str(e))
     kw = dict(epochs=args.epochs, pit=args.pit, device=args.device,
-              dtype=torch.float32 if args.f32 else torch.float64)
+              dtype=torch.float32 if args.f32 else torch.float64, sp_ranks=args.sp,
+              chunk=args.chunk, checkpoint_path=args.ckpt)
     if args.faithful:
         kw.update(n_iters=25, adamax_steps=100, fresh_estep=True, use_lbfgs=False,
                   adamax_lr=0.002, adamax_decay=1.0)

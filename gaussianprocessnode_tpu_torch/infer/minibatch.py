@@ -46,6 +46,7 @@ __all__ = [
     "MinibatchCarry",
     "banana_epoch_stats",
     "banana_epoch_steps",
+    "clone_carry",
     "default_optimizer",
     "fast_epoch_steps",
     "fast_optimizer",
@@ -291,9 +292,11 @@ def init_kin40k_fast_state(theta0, prior_v: MvGaussianNat, M, groups,
     )
 
 
-def _clone_carry(c: FastCarry) -> FastCarry:
-    return FastCarry(c.xi.clone(), c.prec.clone(), c.covs64.clone(), c.theta.clone(),
-                     {k: v.clone() for k, v in c.opt_state.items()}, c.kuu_inv.clone())
+def clone_carry(c):
+    """A copy of a trainer's carry: a NamedTuple of tensors and one
+    optimizer dict of tensors."""
+    return type(c)(*({k: v.clone() for k, v in f.items()} if isinstance(f, dict) else f.clone()
+                     for f in c))
 
 
 def _objective_grad(kernel, Xu, dt, ns_iters, ns_tol=None):
@@ -318,9 +321,11 @@ def _objective_grad(kernel, Xu, dt, ns_iters, ns_tol=None):
 def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMaxChain,
                      dt, refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
                      refresh_ns_tol: float | None = None, obj_ns_iters: int = 12,
-                     obj_ns_tol: float | None = None):
+                     obj_ns_tol: float | None = None, reduce=_identity):
     """The two steps of a :func:`fit_kin40k_fast` epoch, for θ of dtype
-    ``dt``, as functions (so each can also be timed alone):
+    ``dt``, as functions (so each can also be timed alone); ``reduce`` is
+    the identity on one device, a data-parallel trainer's all-reduce over
+    the points (the natural-parameter increments and the θ-gradient):
 
     - ``statistics_refresh(theta, xi, prec, cov_warm, Xg, yg) -> (ξ, Λ, Σ,
       μ_v, Rv)``: one Gram K(Xu, Xg) in ``dt``, cast to the accumulation
@@ -339,7 +344,7 @@ def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMa
         Kall = kernel(theta, Xu, Xg).to(acc_dt)
         xi, prec, cov64, mu64 = qv_grand_update(
             Kall, yg.to(acc_dt), xi, prec, w_val, cov_warm, refresh_ns_iters,
-            ns_tol=refresh_ns_tol, lambda_min=lam_v)
+            ns_tol=refresh_ns_tol, reduce=reduce, lambda_min=lam_v)
         return xi, prec, cov64, mu64.to(dt), (cov64 + torch.outer(mu64, mu64)).to(dt)
 
     grad = _objective_grad(kernel, Xu, dt, obj_ns_iters, obj_ns_tol)
@@ -347,7 +352,7 @@ def fast_epoch_steps(kernel, Xu, prior_v: MvGaussianNat, w_val, optimizer: AdaMa
     def grad_one(th, kw, batch):
         return grad(th, kw, *batch, w_val)
 
-    return statistics_refresh, make_theta_step(grad_one, optimizer)
+    return statistics_refresh, make_theta_step(grad_one, optimizer, reduce=reduce)
 
 
 def fit_kin40k_fast(
@@ -367,6 +372,7 @@ def fit_kin40k_fast(
     refresh_ns_tol: float | None = None,
     obj_ns_iters: int = 12,
     obj_ns_tol: float | None = None,
+    reduce=_identity,
 ):
     """Epoch-granular kin40k trainer (the benchmark's fast path), on the
     device of its tensors.
@@ -383,7 +389,9 @@ def fit_kin40k_fast(
     the previous epoch, then one ``theta_step`` per batch of the group
     (:func:`fast_epoch_steps`). With ``obj_ns_tol`` or ``refresh_ns_tol``
     set, the Newton–Schulz loops exit early, which reads a residual on the
-    host each iteration.
+    host each iteration. ``reduce``: the identity on one device; the
+    data-parallel trainer's all-reduce over the points
+    (:func:`fast_epoch_steps`).
 
     Returns ``(theta, MvGaussianNat(ξ, Λ), Σ of the last group, carry)``."""
     B = X_batched.shape[0]
@@ -405,12 +413,13 @@ def fit_kin40k_fast(
     ybg = y_batched.reshape(groups, gsz, *y_batched.shape[1:])
     refresh, theta_step = fast_epoch_steps(
         kernel, Xu, prior_v, w_val, optimizer, dt, refresh_ns_iters=refresh_ns_iters,
-        refresh_ns_tol=refresh_ns_tol, obj_ns_iters=obj_ns_iters, obj_ns_tol=obj_ns_tol)
+        refresh_ns_tol=refresh_ns_tol, obj_ns_iters=obj_ns_iters, obj_ns_tol=obj_ns_tol,
+        reduce=reduce)
 
     if resume_state is None:
         carry = init_kin40k_fast_state(theta0, prior_v, M, groups, optimizer=optimizer)
     else:
-        carry = _clone_carry(resume_state)
+        carry = clone_carry(resume_state)
     xi, prec, covs64, theta, opt_state, kuu_inv = carry
     acc_dt = covs64.dtype
     xi_prior, prec_prior = prior_v.xi.to(acc_dt), prior_v.prec.to(acc_dt)
@@ -445,12 +454,6 @@ class MinibatchCarry(NamedTuple):
     opt_state: dict
     w_shape: torch.Tensor
     w_rate: torch.Tensor
-
-
-def _clone_minibatch_carry(c: MinibatchCarry) -> MinibatchCarry:
-    return MinibatchCarry(*(t.clone() for t in c[:5]),
-                          {k: v.clone() for k, v in c.opt_state.items()},
-                          c.w_shape.clone(), c.w_rate.clone())
 
 
 def _scalar(x, dtype, device):
@@ -507,7 +510,7 @@ def fit_kin40k(
             torch.zeros((M, M), dtype=dt, device=dev), theta, optimizer.init(theta),
             torch.zeros((), dtype=dt, device=dev), torch.zeros((), dtype=dt, device=dev))
     else:
-        carry = _clone_minibatch_carry(resume_state)
+        carry = clone_carry(resume_state)
     xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
 
     for _ in range(epochs):
@@ -600,10 +603,14 @@ def banana_epoch_stats(kernel, Xu, X, y, carry: MinibatchCarry, N_global,
 
 
 def banana_epoch_steps(kernel, Xu, X, y, prior_v: MvGaussianNat, optimizer: AdaMaxChain,
-                       dt):
+                       dt, reduce=_identity, N_global=None,
+                       refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+                       obj_ns_iters: int = NS_ITERS_STEADY):
     """The two steps of a :func:`fit_banana_fast` epoch on all the training
     points (X, y), for θ of dtype ``dt``, as functions (so each can also be
-    timed alone):
+    timed alone). A data-parallel trainer passes its shard of the points,
+    its all-reduce as ``reduce`` and the global point count ``N_global``
+    (default: X's rows):
 
     - ``statistics(carry) -> (qf, ξ, Λ, Σ, μ_v, Rv, w_shape, w_rate)``:
       :func:`banana_epoch_stats` with the prior's λ_min bound;
@@ -613,14 +620,15 @@ def banana_epoch_steps(kernel, Xu, X, y, prior_v: MvGaussianNat, optimizer: AdaM
     acc_dt = _acc_dtype(dt)
     # Λ accumulates PSD increments from the prior up → its λ_min bound
     lam_v = gershgorin_lambda_min(sym(prior_v.prec)).to(acc_dt)
-    N = X.shape[0]
+    N = X.shape[0] if N_global is None else N_global
 
     def statistics(carry):
-        return banana_epoch_stats(kernel, Xu, X, y, carry, N, REFRESH_NS_ITERS_SCALED, dt,
-                                  acc_dt, lambda_min=lam_v)
+        return banana_epoch_stats(kernel, Xu, X, y, carry, N, refresh_ns_iters, dt,
+                                  acc_dt, reduce=reduce, lambda_min=lam_v)
 
-    grad = _objective_grad(kernel, Xu, dt, NS_ITERS_STEADY)
-    return statistics, make_theta_step(lambda th, kw, b: grad(th, kw, *b), optimizer)
+    grad = _objective_grad(kernel, Xu, dt, obj_ns_iters)
+    return statistics, make_theta_step(lambda th, kw, b: grad(th, kw, *b), optimizer,
+                                       reduce=reduce)
 
 
 def fit_banana_fast(
@@ -634,6 +642,10 @@ def fit_banana_fast(
     epochs: int,
     learning_rate: float = 0.001,
     resume_state: MinibatchCarry | None = None,
+    refresh_ns_iters: int = REFRESH_NS_ITERS_SCALED,
+    obj_ns_iters: int = NS_ITERS_STEADY,
+    reduce=_identity,
+    N_global: int | None = None,
 ):
     """Epoch-granular banana trainer (the :func:`fit_banana` fixed point at
     the fast trainer's cost), on the device of its tensors. Per epoch:
@@ -648,20 +660,25 @@ def fit_banana_fast(
 
     ``resume_state``: a carry from an earlier call, from
     :func:`init_banana_state` or from ``convert.banana_state_from_jax``; it
-    is copied, not changed. Returns ``(θ, MvGaussianNat(ξ, Λ),
-    GammaShapeRate(shape, rate), carry)``."""
+    is copied, not changed. ``reduce`` and ``N_global``: the identity and
+    the batches' point count on one device; the data-parallel trainer's
+    all-reduce and the global point count (:func:`banana_epoch_steps`).
+    Returns ``(θ, MvGaussianNat(ξ, Λ), GammaShapeRate(shape, rate),
+    carry)``."""
     optimizer = default_optimizer(learning_rate)
     dt = theta0.dtype
     # grand arrays derived from the batches, so (x, y) pairs cannot be
     # mispaired
     X = X_batched.reshape(-1, X_batched.shape[-1])
     y = y_batched.reshape(-1)
-    statistics, theta_step = banana_epoch_steps(kernel, Xu, X, y, prior_v, optimizer, dt)
+    statistics, theta_step = banana_epoch_steps(
+        kernel, Xu, X, y, prior_v, optimizer, dt, reduce=reduce, N_global=N_global,
+        refresh_ns_iters=refresh_ns_iters, obj_ns_iters=obj_ns_iters)
 
     if resume_state is None:
         carry = init_banana_state(kernel, theta0, Xu, prior_v, prior_w, optimizer=optimizer)
     else:
-        carry = _clone_minibatch_carry(resume_state)
+        carry = clone_carry(resume_state)
     theta, opt_state, kuu_inv = carry.theta, carry.opt_state, carry.kuu_inv
 
     for _ in range(epochs):
@@ -709,7 +726,7 @@ def fit_banana(
     if resume_state is None:
         carry = init_banana_state(kernel, theta0, Xu, prior_v, prior_w, optimizer=optimizer)
     else:
-        carry = _clone_minibatch_carry(resume_state)
+        carry = clone_carry(resume_state)
     xi, prec, cov, kuu_inv, theta, opt_state, w_shape, w_rate = carry
 
     for _ in range(epochs):

@@ -8,6 +8,8 @@ mat-vec, and for a classifier the Φ epilogue. With
 ``Kernel(use_kernel=True)`` the Gram is the hand-written CUDA kernel of
 ``ops/se_gram.py``. The GPSSM filter (``GPSSMFilter``) costs one Gram of
 the inducing inputs against the 2·D cubature points per observation.
+``shard_requests`` gives each rank of a data-parallel server its slice of
+a request batch; the state is replicated, so no collective is needed.
 """
 
 import time
@@ -20,10 +22,22 @@ from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from .infer.batch_vmp import predict_out, predict_probit
 from .infer.chain_smoother import filter_frozen, filter_stream
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
+from .parallel.comm import rank_slice
 from .utils.profiling import synchronize
 
 __all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "serve_fused", "throughput",
-           "throughput_fused"]
+           "throughput_fused", "shard_requests"]
+
+
+def shard_requests(X_test, group=None):
+    """This rank's contiguous slice of a request batch along its leading
+    dimension (which must divide evenly over the group's ranks), for
+    data-parallel serving: each rank serves its slice through a handle or
+    :func:`serve_fused` with no collective, the model state replicated on
+    every rank, and its predictions are the matching rows of single-device
+    serving."""
+    return rank_slice(torch.as_tensor(X_test), 0, group,
+                      "request batch of {size} does not shard evenly over {n} ranks")
 
 
 def _recover_mu_v(nat: MvGaussianNat, ns_iters: int = 60, ir_rounds: int = 4):

@@ -1,8 +1,8 @@
 """The port's CUDA kernel, its route, and the serving and training paths
 (kin40k regression, banana classification, the toy workloads, the VSGP
 collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
-its streaming filter and the associative scan, the GPLVM sweep) on a CUDA
-card.
+its streaming filter and the associative scan, the GPLVM sweep, the
+data-parallel kin40k trainer over NCCL at world size 1) on a CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -786,3 +786,34 @@ def test_gppad_float64_on_card_matches_cpu():
     for a, b in zip(card, run("cpu")):
         assert torch.isfinite(a).all()
         assert _relmax(a, b) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_kin40k_dp_trainer_over_nccl_at_world_size_1_kernel_matches_plain_on_card():
+    """``fit_kin40k_fast_dp`` at full width on a one-rank NCCL group, two
+    epochs through the kernel (41 launches each) and through the plain
+    Gram, held to each other as chip_smoke.py phase 6 holds the
+    single-device trainer (1e-4 relative; measured ~2e-7)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.parallel import comm
+    from gaussianprocessnode_tpu_torch.parallel.sharding import (fit_kin40k_fast_dp,
+                                                                 shard_batched_data)
+
+    theta0, Xu, Xb, yb, prior = runner.setup(runner.load_data("synthetic", 0, n_test=10),
+                                             device="cuda")
+    with comm.single_rank_group("cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        Xs, ys = shard_batched_data(Xb, yb)
+        before = sg.se_gram_cuda.launches
+        th_k, nat_k, _, _ = fit_kin40k_fast_dp(Kernel("se", "softplus", use_kernel=True), theta0,
+                                               Xu, Xs, ys, prior, runner.W_VAL, 2)
+        launches = sg.se_gram_cuda.launches - before
+        th_p, nat_p, _, _ = fit_kin40k_fast_dp(Kernel("se", "softplus", use_kernel=False),
+                                               theta0, Xu, Xs, ys, prior, runner.W_VAL, 2)
+    assert launches == 2 * (1 + 2 * Xb.shape[0])
+    for a, b in ((th_k, th_p), (nat_k.xi, nat_p.xi), (nat_k.prec, nat_p.prec)):
+        a, b = a.double(), b.double()
+        assert bool(torch.isfinite(a).all())
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-4

@@ -77,10 +77,10 @@ def test_runner_defaults_to_the_card():
 
 
 def test_faithful_runner_takes_the_budget(monkeypatch):
-    """The faithful path hands ``ns_budget`` to ``fit_kin40k`` and trains
-    its epochs in one call (the JAX runner's chunks only bound the length
-    of one device dispatch and the snapshot cadence; the port writes no
-    snapshots)."""
+    """The faithful path hands ``ns_budget`` and the learning rate to
+    ``fit_kin40k`` and trains its epochs through ``chunked_run`` in chunks
+    of max(10, ⌊50·34/budget⌋) = 85 epochs at budget 20, as the JAX runner
+    does: 2 epochs are one chunk, from no carry."""
     calls = []
     fit = runner.fit_kin40k
 
@@ -92,6 +92,6 @@ def test_faithful_runner_takes_the_budget(monkeypatch):
     kw = dict(m_inducing=16, batch_size=50, n_train=200, n_test=50, device="cpu",
               faithful=True)
     short = runner.run(epochs=2, ns_budget=20, **kw)
-    assert calls == [(2, {"ns_budget": 20})]
+    assert calls == [(2, {"learning_rate": 0.001, "resume_state": None, "ns_budget": 20})]
     assert short["ns_budget"] == 20 and short["trainer"] == "fit_kin40k"
     assert math.isfinite(short["smse"])
