@@ -55,7 +55,17 @@ set_sync_debug_mode("error")) held bit for bit to the single-device
 trainers and the kin40k one to its plain-Gram route, the tensor-parallel
 sweep (M = 600) and prediction held to the dense sweep, and the
 sequence-parallel GPSSM smoother (T = 300, M = 48, 25 sweeps, float32)
-held to the Jacobi smoother. It prints
+held to the Jacobi smoother; and, last, runs the Ozaki f64 product
+(``ops/ozaki.py``, int8 groups on cuBLASLt through ``torch._int_mm``, a
+library route and not a ported kernel): ``torch._int_mm``'s shape rules and
+layouts, each group's int32 product at K = 10,000 against the exact
+integer product, the result against the host's f64 product at 600^3, at
+the 600×10000 SYRK and at a κ = 1e12 SPD 96^3 case, device times against
+cuBLAS's f64 product there and in a 28-iteration Newton–Schulz chain on
+the trained Λ; the serving record (``experiments/serving_bench.py``: its
+gate, then 1024- and 30,000-request batches one call each and 64 batches
+of 30,000 queued back to back) and the flagship forward step
+(``entry.py``) in float32 through the kernel against float64. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -75,6 +85,8 @@ held to the Jacobi smoother. It prints
   Gram's epochs, and a θ-step's and a statistics pass's device and host
   times, for kin40k and banana; a collapsed VSGP step's device and host
   times;
+- phase 16's readings, and one JSON line {"library_routes": [...]} with
+  the Ozaki product's (a cuBLASLt route, not a ported kernel);
 - one JSON line {"kernels": [...]} with each kernel's launches on every
   path (``launches_by_path``), its disagreement with the plain version and
   those times;
@@ -149,7 +161,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/15 device: start")
+    say("phase 1/16 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -163,12 +175,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/15 device: done")
+    say("phase 1/16 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/15 build: start")
+    say("phase 2/16 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -178,7 +190,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/15 build: done")
+    say("phase 2/16 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -209,7 +221,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/15 kernel vs plain: start")
+    say("phase 3/16 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -285,13 +297,14 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/15 kernel vs plain: done")
+    say("phase 3/16 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/15 serving: start")
+    say("phase 4/16 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
+    from gaussianprocessnode_tpu_torch.experiments import serving_bench
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
 
@@ -337,12 +350,9 @@ def phase_serve(seed, z):
     # |K|ᵀ|μ|, plus M·ε for each side's f32 mat-vec
     plain = dataclasses.replace(handle, kernel=Kernel("se", "softplus", use_kernel=False))
     m_plain, _ = plain(X[0])
-    var, ls = plain.kernel.params(handle.theta)
-    K0 = plain.kernel(handle.theta, handle.Xu, X[0])
-    scale = K0.abs().T @ handle.mu_v.abs()
-    gtol = gram_tolerance(handle.Xu / ls, X[0] / ls, var) / float(var)
+    scale, lim = serving_bench.means_bound(plain.kernel, handle.theta, handle.Xu,
+                                           handle.mu_v, X[0])
     rel = float(((means[0] - m_plain).abs() / scale).max())
-    lim = gtol + 2 * M_IND * EPS32
     print(f"means vs plain path (batch 0, f32, card): max |d|/(|K|^T|mu|) = "
           f"{rel:.3e} (limit {lim:.3e})", flush=True)
     check(rel <= lim, "served means disagree with the plain path")
@@ -361,7 +371,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/15 serving: done")
+    say("phase 4/16 serving: done")
     return handle, X, launches
 
 
@@ -437,7 +447,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/15 times: start")
+    say("phase 5/16 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -455,7 +465,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/15 times: done")
+    say("phase 5/16 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -530,7 +540,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/15 training: start")
+    say("phase 6/16 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -633,7 +643,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/15 training: done")
+    say("phase 6/16 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -702,7 +712,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/15 banana training: start")
+    say("phase 7/16 banana training: start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
@@ -871,7 +881,7 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
-    say("phase 7/15 banana training: done")
+    say("phase 7/16 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -901,10 +911,11 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/15 classifier serving: start")
+    say("phase 8/16 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
+    from gaussianprocessnode_tpu_torch.experiments import serving_bench
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
@@ -967,8 +978,9 @@ def phase_classifier(seed, card):
     # P = Φ(z), z = m/√(1+v): the served m (float32 mat-vec) moves by at most
     # δm = (Gram bound + M·ε per side's mat-vec)·|K|ᵀ|μ|, z by δz = δm/√(1+v),
     # and P by at most φ(max(|z| − δz, 0))·δz, plus 4 ε for Φ's own rounding
-    scale = (K0.abs().T @ handle.mu_v.abs()).double()
-    lim = gram_tolerance(handle.Xu / ls, X[0] / ls, var) / float(var) + 2 * M_BAN * EPS32
+    scale, lim = serving_bench.means_bound(plain.kernel, handle.theta, handle.Xu,
+                                           handle.mu_v, X[0])
+    scale = scale.double()
     s1v = torch.sqrt(1.0 + 1.0 / handle.w_mean)
     z_plain = (K0.T @ handle.mu_v).double() / s1v
     dz = lim * scale / s1v
@@ -1002,7 +1014,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/15 classifier serving: done")
+    say("phase 8/16 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1067,7 +1079,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/15 toy workloads: start")
+    say("phase 9/16 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1208,7 +1220,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/15 toy workloads: done")
+    say("phase 9/16 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1265,7 +1277,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/15 VSGP and FITC baselines: start")
+    say("phase 10/16 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1464,7 +1476,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/15 VSGP and FITC baselines: done")
+    say("phase 10/16 VSGP and FITC baselines: done")
     return out
 
 
@@ -1526,7 +1538,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/15 MultiSGP node and M-step objective: start")
+    say("phase 11/16 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1659,7 +1671,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/15 MultiSGP node and M-step objective: done")
+    say("phase 11/16 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -1958,7 +1970,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/15 GPSSM family: start")
+    say("phase 12/16 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2109,7 +2121,7 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/15 GPSSM family: done")
+    say("phase 12/16 GPSSM family: done")
     return out
 
 # the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
@@ -2334,7 +2346,7 @@ def phase_gplvm(seed, card):
       just before; the two GPLVM Gram shapes held to plain and timed;
     - each ``infer/model.py`` class's ``infer`` bit for bit against its
       direct call on the card."""
-    say("phase 13/15 GPLVM and the model front-end: start")
+    say("phase 13/16 GPLVM and the model front-end: start")
     from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -2449,7 +2461,7 @@ def phase_gplvm(seed, card):
     check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
     out["front_end_equal"] = same
     out["launches_by_path"] = {"gplvm_f32_sweep": l32}
-    say("phase 13/15 GPLVM and the model front-end: done")
+    say("phase 13/16 GPLVM and the model front-end: done")
     return out
 
 
@@ -2525,7 +2537,7 @@ def phase_legacy(card):
       the card and on the host;
     - a profiled sequential smoother call (T = 400) and a profiled
       colored-EM epoch at reduced depth (4 E-sweeps, 2 adjoint VJPs)."""
-    say("phase 14/15 legacy GP families: start")
+    say("phase 14/16 legacy GP families: start")
     from gaussianprocessnode_tpu_torch.experiments import legacy_gp as lg
     from gaussianprocessnode_tpu_torch.infer.pad_learn import fit_gppad_colored_theta
     from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_smooth
@@ -2623,7 +2635,7 @@ def phase_legacy(card):
           "the legacy families launched the float32 SE Gram kernel")
     out["launches"] = main_launches + rest
     out["launches_by_path"] = {"legacy_padscale": main_launches, "legacy_workloads": rest}
-    say("phase 14/15 legacy GP families: done")
+    say("phase 14/16 legacy GP families: done")
     return out
 
 
@@ -2693,7 +2705,7 @@ def phase_parallel(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 15/15 parallel layer (world size 1 over NCCL): start")
+    say("phase 15/16 parallel layer (world size 1 over NCCL): start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.experiments import pendulum as prunner
@@ -2895,8 +2907,276 @@ def phase_parallel(seed, card):
                                "dp_banana_nccl": out["dp_banana"]["launches"],
                                "tp_sweep_predict_nccl": tp_launches,
                                "sp_gpssm_nccl": sp_launches}
-    say("phase 15/15 parallel layer (world size 1 over NCCL): done")
+    say("phase 15/16 parallel layer (world size 1 over NCCL): done")
     return out
+
+
+OZ_RTOL = 1e-14            # tests/test_ozaki.py's limit against numpy's f64 product
+OZ_K_EXACT = 10000         # the inner length at which a TPU's int8 dot was not exact
+OZ_SHAPES = ((600, 600, 600, "600^3 product"),
+             (600, 10000, 600, "SYRK X X^T of the 600x10000 statistics"))
+OZ_UNIT_PASSES = 36        # int8 unit products at 8 slices, 8·9/2
+NS_CHAIN_ITERS = 28        # the Newton-Schulz chain of the trainers' refresh
+# H100 SXM data sheet at its 700 W limit: f64 tensor cores, dense int8
+PEAK_F64_FLOP_PER_S = 67e12
+PEAK_INT8_OP_PER_S = 1979e12
+
+
+def _oz_rel(C, C_ref) -> float:
+    return float(np.max(np.abs(C - C_ref)) / np.max(np.abs(C_ref)))
+
+
+def ozaki_bounds_ms(m, k, n, inputs_bytes) -> dict:
+    """Least times for the product: cuBLAS's f64 (operations over the f64
+    tensor-core peak, or the bytes: the inputs read once and the f64 output
+    written once) and the Ozaki scheme's int8 passes alone (36 unit
+    products over the int8 peak; the split and the f64 accumulation are not
+    counted)."""
+    nbytes = inputs_bytes + 8.0 * m * n
+    flops = 2.0 * m * k * n
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f64 = flops / PEAK_F64_FLOP_PER_S
+    t_int8 = OZ_UNIT_PASSES * flops / PEAK_INT8_OP_PER_S
+    return {"f64_bound_ms": max(t_b, t_f64) * 1e3,
+            "f64_bound_by": "bytes" if t_b >= t_f64 else "operations",
+            "ozaki_int8_bound_ms": max(t_b, t_int8) * 1e3,
+            "bytes": nbytes, "flops": flops}
+
+
+def _int_mm_rules() -> dict:
+    """torch._int_mm's shape rules and operand layouts on this card: each
+    case's product against the exact one, or the error it raises."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for label, (m, k, n), layout in (
+            ("17x16x16 row-major B", (17, 16, 16), "row"),
+            ("17x16x16 column-major B", (17, 16, 16), "col"),
+            ("17x16x16 column-major A", (17, 16, 16), "colA"),
+            ("16 rows", (16, 16, 16), "row"),
+            ("k = 12", (17, 12, 16), "row"),
+            ("n = 12", (17, 16, 12), "row"),
+            ("strided views, ld 48", (17, 16, 16), "strided")):
+        a = rng.integers(-64, 65, (m, 3 * k)).astype(np.int8)
+        b = rng.integers(-64, 65, (3 * k, n)).astype(np.int8)
+        A = torch.as_tensor(a, device="cuda")
+        BT = torch.as_tensor(np.ascontiguousarray(b.T), device="cuda")
+        if layout == "strided":
+            Aop, Bop = A[:, k:2 * k], BT[:, k:2 * k].T
+            ref = a[:, k:2 * k].astype(np.int64) @ b[k:2 * k].astype(np.int64)
+        else:
+            Aop, Bop = A[:, :k].contiguous(), BT[:, :k].T
+            if layout in ("row", "colA"):
+                Bop = Bop.contiguous()
+            if layout == "colA":
+                Aop = Aop.T.contiguous().T
+            ref = a[:, :k].astype(np.int64) @ b[:k].astype(np.int64)
+        try:
+            P = torch._int_mm(Aop, Bop)
+            torch.cuda.synchronize()
+            out[label] = "exact" if np.array_equal(P.cpu().numpy().astype(np.int64), ref) \
+                else "WRONG"
+        except RuntimeError as e:
+            out[label] = "raises: " + str(e).splitlines()[0][:120]
+    print(f"torch._int_mm on the card: {out}", flush=True)
+    check(out["17x16x16 column-major B"] == "exact" and out["strided views, ld 48"] == "exact",
+          "torch._int_mm is not exact in the layouts ozaki_matmul uses")
+    return out
+
+
+def _ns_chain(Lam, mm, iters=NS_CHAIN_ITERS):
+    """The classic Newton-Schulz chain X ← X(2I − ΛX) from X₀ = I/‖Λ‖∞,
+    each product by ``mm``."""
+    if isinstance(Lam, np.ndarray):
+        eye = np.eye(Lam.shape[0])
+        X = eye / np.abs(Lam).sum(1).max()
+    else:
+        eye = torch.eye(Lam.shape[0], dtype=Lam.dtype, device=Lam.device)
+        X = eye / Lam.abs().sum(1).max()
+    two_eye = 2.0 * eye
+    for _ in range(iters):
+        X = mm(X, two_eye - mm(Lam, X))
+    return X
+
+
+def phase_ozaki(seed, z, card):
+    """``ops/ozaki.py`` on the card: ``torch._int_mm``'s rules and layouts;
+    each diagonal group's int32 product at K = 10,000 against the exact
+    integer product on the host; ``ozaki_matmul`` against the host's f64
+    product at 600^3, at the 600×10000 SYRK and at the κ = 1e12 SPD 96^3
+    case (OZ_RTOL); device times of ``ozaki_matmul`` and cuBLAS's f64
+    ``torch.matmul`` at 600^3 and the SYRK, and of the 28-iteration
+    Newton-Schulz chain on the trained Λ (M = 600) with each product."""
+    from gaussianprocessnode_tpu_torch.ops import ozaki
+    from gaussianprocessnode_tpu_torch.utils.profiling import (cuda_graph_time_ms,
+                                                                cuda_kernel_times)
+
+    rng = np.random.default_rng(seed)
+    out = {"int_mm_rules": _int_mm_rules()}
+
+    # exactness: every group's int32 sum against the host's, carried in f64
+    # BLAS, which is exact here (integer partial sums ≤ 64·64·8·K < 2^53)
+    X = torch.as_tensor(rng.standard_normal((600, OZ_K_EXACT)), device="cuda")
+    S = ozaki.OZAKI_SLICES
+    Aall, BallT, _ = ozaki._operands(X, X.T, S)
+    exact = []
+    for s in range(S):
+        Aop, Bop = ozaki._group(Aall, BallT, OZ_K_EXACT, S, s)
+        P = torch._int_mm(Aop, Bop).cpu().numpy().astype(np.int64)
+        ref = Aop.cpu().numpy().astype(np.float64) @ Bop.cpu().numpy().astype(np.float64)
+        exact.append(bool(np.array_equal(P, ref.astype(np.int64))))
+    print(f"ozaki groups at K={OZ_K_EXACT} (inner lengths {OZ_K_EXACT}..{S * OZ_K_EXACT}): "
+          f"int32 equal to the exact integer product: {exact}", flush=True)
+    check(all(exact), "an int8 group product is not exact in int32")
+    out["groups_exact_k10000"] = exact
+
+    # accuracy against the host's f64 product
+    acc = {}
+    cases = []
+    for m, k, n, label in OZ_SHAPES:
+        a = rng.standard_normal((m, k))
+        b = a.T.copy() if "SYRK" in label else rng.standard_normal((k, n))
+        cases.append((label, a, b))
+    Q = rng.standard_normal((96, 96))
+    Sp = (Q * 10.0 ** np.linspace(-6, 6, 96)) @ Q.T
+    Sp = (Sp + Sp.T) / 2.0
+    cases.append(("kappa=1e12 SPD 96^3", Sp, Sp))
+    for label, a, b in cases:
+        C = ozaki.ozaki_matmul(torch.as_tensor(a, device="cuda"),
+                               torch.as_tensor(b, device="cuda")).cpu().numpy()
+        C_ref = a @ b
+        r_oz = _oz_rel(C, C_ref)
+        r_cublas = _oz_rel((torch.as_tensor(a, device="cuda") @ torch.as_tensor(b, device="cuda"))
+                           .cpu().numpy(), C_ref)
+        acc[label] = {"ozaki_rel": r_oz, "cublas_f64_rel": r_cublas}
+        print(f"ozaki {label}: max|C - host f64|/max|host| = {r_oz:.3e} (limit {OZ_RTOL:.0e}); "
+              f"cuBLAS f64 {r_cublas:.3e}", flush=True)
+        check(np.isfinite(C).all() and r_oz < OZ_RTOL, f"ozaki_matmul off at {label}")
+    out["accuracy"] = acc
+
+    # times: ozaki_matmul against cuBLAS's f64 product
+    times = {}
+    for (m, k, n, label), (_, a, b) in zip(OZ_SHAPES, cases):
+        A = torch.as_tensor(a, device="cuda")
+        B = A.T if "SYRK" in label else torch.as_tensor(b, device="cuda")
+        oz_ms = cuda_graph_time_ms(lambda: ozaki.ozaki_matmul(A, B), iters=20, warmup=2)
+        f64_ms = cuda_graph_time_ms(lambda: A @ B, iters=20, warmup=2)
+        bounds = ozaki_bounds_ms(m, k, n, 8.0 * (m * k if "SYRK" in label else m * k + k * n))
+        times[label] = {"ozaki_ms": oz_ms, "cublas_f64_ms": f64_ms, **bounds}
+        print(f"ozaki {label}: {oz_ms:.5f} ms against cuBLAS f64 {f64_ms:.5f} ms (device "
+              f"time, CUDA graph of 20 calls); bounds: f64 {bounds['f64_bound_ms'] * 1e3:.2f} us "
+              f"({bounds['f64_bound_by']}), Ozaki int8 passes "
+              f"{bounds['ozaki_int8_bound_ms'] * 1e3:.2f} us [{card}]", flush=True)
+    out["times"] = times
+
+    # where an Ozaki product's device time goes: the int8 GEMMs against the
+    # split, the concatenations and the f64 accumulation (one traced SYRK)
+    m, k, n, label = OZ_SHAPES[1]
+    A = torch.as_tensor(cases[1][1], device="cuda")
+    wall, kernels = cuda_kernel_times(lambda: ozaki.ozaki_matmul(A, A.T))
+    check(bool(kernels), "the profiler recorded no device time for ozaki_matmul")
+    gemm = {name: v for name, v in kernels.items()
+            if any(t in name.lower() for t in ("gemm", "imma", "xmma", "cutlass", "matmul"))}
+    gemm_ms = sum(ms for _, ms in gemm.values())
+    all_ms = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"ozaki {label} traced: {all_ms:.4f} ms of device time in "
+          f"{sum(c for c, _ in kernels.values())} kernels; int8 GEMMs {gemm_ms:.4f} ms in "
+          f"{sum(c for c, _ in gemm.values())}, the rest (split, copies, f64 accumulation) "
+          f"{all_ms - gemm_ms:.4f} ms; largest: "
+          + "; ".join(f"{name[:70]} x{c} {ms:.4f} ms" for name, (c, ms) in top)
+          + f" [{card}]", flush=True)
+    out["syrk_trace"] = {"device_ms": all_ms, "int8_gemm_ms": gemm_ms, "wall_ms": wall,
+                         "largest": [[name, c, ms] for name, (c, ms) in top]}
+
+    # the Newton-Schulz chain on the trained kin40k Λ, each product both ways
+    lam_np = np.asarray(z["prec"], np.float64)
+    Lam = torch.as_tensor(lam_np, device="cuda")
+    X_oz = _ns_chain(Lam, ozaki.ozaki_matmul)
+    X_f64 = _ns_chain(Lam, torch.matmul)
+    X_host = _ns_chain(lam_np, np.matmul)
+    check(bool(torch.isfinite(X_oz).all() and torch.isfinite(X_f64).all()),
+          "non-finite Newton-Schulz chain")
+    scale = float(np.abs(X_host).max())
+    d_pair = float((X_oz - X_f64).abs().max())
+    d_oz = float(np.abs(X_oz.cpu().numpy() - X_host).max())
+    d_f64 = float(np.abs(X_f64.cpu().numpy() - X_host).max())
+    eye = torch.eye(Lam.shape[0], dtype=torch.float64, device="cuda")
+    res = {name: float(torch.linalg.norm(eye - Lam @ Xc)) for name, Xc in
+           (("ozaki", X_oz), ("cublas_f64", X_f64))}
+    oz_ms = cuda_graph_time_ms(lambda: _ns_chain(Lam, ozaki.ozaki_matmul), iters=3, warmup=1)
+    f64_ms = cuda_graph_time_ms(lambda: _ns_chain(Lam, torch.matmul), iters=3, warmup=1)
+    print(f"Newton-Schulz chain ({NS_CHAIN_ITERS} iterations, M={Lam.shape[0]}, trained Lambda): "
+          f"Ozaki {oz_ms:.4f} ms, cuBLAS f64 {f64_ms:.4f} ms (device time, CUDA graph); "
+          f"max|X_oz - X_f64| = {d_pair:.3e}, against the host chain {d_oz:.3e} / {d_f64:.3e} "
+          f"(max|X| = {scale:.3e}); ||I - Lambda X||_F {res} [{card}]", flush=True)
+    out["ns_chain"] = {"iters": NS_CHAIN_ITERS, "ozaki_ms": oz_ms, "cublas_f64_ms": f64_ms,
+                       "max_abs_diff": d_pair, "ozaki_vs_host": d_oz, "f64_vs_host": d_f64,
+                       "max_abs_x": scale, "residual_fro": res}
+    return out
+
+
+def phase_records(seed, card):
+    """The serving record (``experiments/serving_bench.py`` at R = 64 behind
+    its gate) and the flagship forward step (``entry.py``) in float32
+    through the kernel against float64 through the plain Gram. Each path's
+    launch count is set to 0 just before it and read just after."""
+    from gaussianprocessnode_tpu_torch.entry import entry
+    from gaussianprocessnode_tpu_torch.experiments import serving_bench
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+
+    se_gram_cuda.launches = 0
+    rec = serving_bench.record(device="cuda", seed=seed)
+    rec_launches = se_gram_cuda.launches
+    rates = rec["preds_per_second"]
+    check(rec["gate"]["passed"] and rec_launches > 0 and
+          all(np.isfinite(v) and v > 0 for v in rates.values()),
+          f"serving record: {rec['gate']}, launches {rec_launches}, rates {rates}")
+    held = {k: v for k, v in rec["gate"].items() if k.startswith("means_B")}
+    check(set(held) == {"means_B1024", "means_B30000"} and
+          all(h["passed"] for h in held.values()),
+          f"serving record: the timed batch shapes are not all held: {held}")
+    print("serving record: gate (float32 means against float64, max |d|/(|K|^T|mu|)) "
+          + ", ".join(f"{k[6:]} {h['max_rel']:.3e} (limit {h['limit']:.3e})"
+                      for k, h in held.items())
+          + f"; {', '.join(f'{k} {v:.6e}' for k, v in rates.items())} "
+          f"predictions/s; se_gram launches {rec_launches} [{card}]", flush=True)
+
+    fwd, args32 = entry(device="cuda", dtype=torch.float32)
+    _, args64 = entry(device="cuda")
+    se_gram_cuda.launches = 0
+    m32 = fwd(*args32)
+    torch.cuda.synchronize()
+    entry_launches = se_gram_cuda.launches
+    m64 = fwd(*args64)
+    check(se_gram_cuda.launches == entry_launches == 1,
+          f"entry: {se_gram_cuda.launches} launches, expected 1 (float32) + 0 (float64)")
+    theta, Xu, X_test, mu_v = args64
+    scale, limit = serving_bench.means_bound(Kernel("se", transform="softplus"), theta, Xu,
+                                             mu_v, X_test)
+    rel = float(((m32.double() - m64).abs() / scale).max())
+    print(f"entry(): float32 through the kernel against float64 plain: max |d|/(|K|^T|mu|) = "
+          f"{rel:.3e} (limit {limit:.3e}); shape {tuple(m32.shape)}; se_gram launches "
+          f"{entry_launches}", flush=True)
+    check(tuple(m32.shape) == (args32[2].shape[0],) and bool(torch.isfinite(m32).all())
+          and rel <= limit, "entry(): the kernel's forward step disagrees with float64")
+    return {"serving_record": {k: v for k, v in rec.items() if k != "description"},
+            "serving_record_launches": rec_launches,
+            "entry": {"max_rel": rel, "limit": limit, "launches": entry_launches},
+            "launches": rec_launches + entry_launches}
+
+
+def phase_16(seed, z, card):
+    say("phase 16/16 Ozaki f64 product, serving record, entry: start")
+    oz = phase_ozaki(seed, z, card)
+    recs = phase_records(seed, card)
+    route = {"name": "ozaki_matmul", "route": "cuBLASLt int8 GEMM (torch._int_mm), a library "
+             "route and not a ported kernel", "source": "gaussianprocessnode_tpu_torch/ops/ozaki.py",
+             "counterpart_of": "gaussianprocessnode_tpu/ops/ozaki.py:103 (jnp.matmul int8, "
+             "no Pallas kernel)", **oz}
+    print(json.dumps({"library_routes": [route]}), flush=True)
+    say("phase 16/16 Ozaki f64 product, serving record, entry: done")
+    return recs
 
 
 def main(argv=None) -> int:
@@ -2927,6 +3207,7 @@ def main(argv=None) -> int:
         gplvm = phase_gplvm(args.seed, card)
         legacy = phase_legacy(card)
         parallel = phase_parallel(args.seed, card)
+        records = phase_16(args.seed, z, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -2945,7 +3226,7 @@ def main(argv=None) -> int:
                      + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
                      + gpssm["launches"] + gplvm["launches"] + legacy["launches"]
-                     + parallel["launches"]),
+                     + parallel["launches"] + records["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -2960,7 +3241,9 @@ def main(argv=None) -> int:
                              "fitc_f32": vsgp["fitc"]["launches"],
                              "multi_objective_f32": multi["objective"]["launches"],
                              **gpssm["launches_by_path"], **gplvm["launches_by_path"],
-                             **legacy["launches_by_path"], **parallel["launches_by_path"]},
+                             **legacy["launches_by_path"], **parallel["launches_by_path"],
+                             "serving_record": records["serving_record_launches"],
+                             "entry_f32": records["entry"]["launches"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -2999,6 +3282,7 @@ def main(argv=None) -> int:
         "gplvm": {k: v for k, v in gplvm.items() if k != "shapes"},
         "legacy_gp": legacy,
         "parallel": {k: v for k, v in parallel.items() if k != "launches_by_path"},
+        "records": records,
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -22,7 +22,9 @@ default).
         [--xu PATH] [--learning-rate LR] [--stats-refreshes G]
 
 prints one JSON line: ``value`` (seconds for the epochs, host clock
-between two ``torch.cuda.synchronize()`` calls), ``smse``, ``device`` (the
+between two ``torch.cuda.synchronize()`` calls; with ``run(warm_timing=
+True)`` those of a second run from the same start), ``first_seconds``
+(the first run's), ``smse``, ``device`` (the
 card's name and power limit from nvidia-smi), ``gram_launches`` (kernel
 launches during the epochs) and ``data``. ``--data synthetic`` (the
 default) trains on ``utils/datasets.py::kin40k_synthetic`` data from
@@ -123,14 +125,22 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         n_train: int = 10_000, n_test: int = 30_000, seed: int = 1,
         data: str = "synthetic", device: str = "cuda", faithful: bool = False,
         dtype=None, ns_budget: int = KIN40K_BATCH_NS_ITERS, xu=None,
-        learning_rate: float = 0.001, stats_refreshes: int = 1) -> dict:
+        learning_rate: float = 0.001, stats_refreshes: int = 1,
+        warm_timing: bool = False) -> dict:
     """Train θ for ``epochs`` epochs at ``learning_rate`` with
     ``fit_kin40k_fast`` (``stats_refreshes`` statistics refreshes per
     epoch) or, with ``faithful``, ``fit_kin40k`` at ``ns_budget``, in
     chunks through ``chunked_run``, and score the test set. ``xu``: the
     inducing inputs (default: M training rows drawn by ``seed``). ``dtype``
-    defaults to float32, and to float64 with ``faithful``. Returns the
-    result dict that the command line prints."""
+    defaults to float32, and to float64 with ``faithful``. With
+    ``warm_timing`` the epochs run a second time, from the same θ0 and
+    carry, and ``value`` is that run's seconds (the kernel's build and the
+    first allocations are then outside it); ``first_seconds`` is the first
+    run's in both modes. The second run's θ, ξ and Λ equal the first's bit
+    for bit (the trainers draw nothing at random), which
+    ``warm_equals_first`` records (None without ``warm_timing``). Returns
+    the result dict that the command line prints; ``gram_launches`` counts
+    the first run's."""
     dev = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if faithful else torch.float32
@@ -142,26 +152,39 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         from ..ops.se_gram import _kernel_fn
 
         _kernel_fn()  # build and load the kernel before the clock starts
-    synchronize(dev)
-    se_gram_cuda.launches = 0
-    t0 = time.perf_counter()
-    if faithful:
-        theta, qv_nat, _ = chunked_run(
-            lambda e, st: fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, e,
-                                     learning_rate=learning_rate, resume_state=st,
-                                     ns_budget=ns_budget),
-            epochs, faithful_chunk(ns_budget), None)
-        cov64 = None
-    else:
+
+    def train():
+        if faithful:
+            theta, qv_nat, _ = chunked_run(
+                lambda e, st: fit_kin40k(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, e,
+                                         learning_rate=learning_rate, resume_state=st,
+                                         ns_budget=ns_budget),
+                epochs, faithful_chunk(ns_budget), None)
+            return theta, qv_nat, None
         groups = max(1, min(stats_refreshes, Xb.shape[0]))
         theta, qv_nat, cov64, _ = chunked_run(
             lambda e, st: fit_kin40k_fast(kernel, theta0, Xu, Xb, yb, prior_v, W_VAL, e,
                                           learning_rate=learning_rate,
                                           stats_refreshes=stats_refreshes, resume_state=st),
             epochs, FAST_CHUNK, init_kin40k_fast_state(theta0, prior_v, Xu.shape[0], groups))
-    synchronize(dev)
-    seconds = time.perf_counter() - t0
+        return theta, qv_nat, cov64
+
+    def timed():
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = train()
+        synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    se_gram_cuda.launches = 0
+    (theta, qv_nat, cov64), seconds = timed()
     launches = se_gram_cuda.launches
+    first_seconds = seconds
+    warm_equal = None
+    if warm_timing:
+        first = (theta, qv_nat.xi, qv_nat.prec)
+        (theta, qv_nat, cov64), seconds = timed()
+        warm_equal = all(torch.equal(a, b) for a, b in zip(first, (theta, qv_nat.xi, qv_nat.prec)))
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
     mean = predict(kernel, theta, Xu, qv_nat, cov64, X_test)
     score = float(smse(torch.as_tensor(ds.y_test), mean.cpu().double()))
@@ -169,6 +192,9 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         "metric": "kin40k_train_wallclock",
         "value": seconds,
         "unit": "s",
+        "first_seconds": first_seconds,
+        "warm_timing": warm_timing,
+        "warm_equals_first": warm_equal,
         "trainer": "fit_kin40k" if faithful else "fit_kin40k_fast",
         "dtype": str(dtype).removeprefix("torch."),
         "epochs": epochs,
@@ -181,6 +207,7 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
         "learning_rate": learning_rate,
         "stats_refreshes": None if faithful else stats_refreshes,
         "m_inducing": Xu.shape[0],
+        "theta": theta.tolist(),
         "theta_softplus": torch.logaddexp(theta, torch.zeros_like(theta)).tolist(),
     }
 

@@ -2,7 +2,9 @@
 (kin40k regression, banana classification, the toy workloads, the VSGP
 collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
 its streaming filter and the associative scan, the GPLVM sweep, the
-data-parallel kin40k trainer over NCCL at world size 1) on a CUDA card.
+data-parallel kin40k trainer over NCCL at world size 1), the Ozaki f64
+product's int8 groups and the flagship forward step (``entry.py``) on a
+CUDA card.
 
 Every test here carries the ``gpu`` marker and skips itself, inside the
 test, where there is no card. The module imports no JAX, so it also runs on
@@ -817,3 +819,55 @@ def test_kin40k_dp_trainer_over_nccl_at_world_size_1_kernel_matches_plain_on_car
         a, b = a.double(), b.double()
         assert bool(torch.isfinite(a).all())
         assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_ozaki_groups_are_exact_in_int32_at_k10000_on_card():
+    """Each diagonal group's torch._int_mm (cuBLASLt's int8 GEMM) equals the
+    exact integer product of the same chunks at K = 10,000 (inner lengths up
+    to 80,000), and ozaki_matmul holds the host's f64 product to 1e-14
+    relative (tests/test_ozaki.py's limit)."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.ops import ozaki
+
+    rng = np.random.default_rng(11)
+    k, S = 10_000, ozaki.OZAKI_SLICES
+    x = rng.standard_normal((64, k))
+    X = torch.as_tensor(x, device="cuda")
+    Aall, BallT, _ = ozaki._operands(X, X.T, S)
+    for s in range(S):
+        Aop, Bop = ozaki._group(Aall, BallT, k, S, s)
+        P = torch._int_mm(Aop, Bop).cpu().numpy().astype(np.int64)
+        # integer partial sums ≤ 64·64·8·K < 2^53: the f64 product is exact
+        ref = Aop.cpu().numpy().astype(np.float64) @ Bop.cpu().numpy().astype(np.float64)
+        assert np.array_equal(P, ref.astype(np.int64)), s
+    C = ozaki.ozaki_matmul(X, X.T).cpu().numpy()
+    C_ref = x @ x.T
+    assert np.abs(C - C_ref).max() / np.abs(C_ref).max() < 1e-14
+    # shapes that need padding for torch._int_mm's rules
+    a, b = rng.standard_normal((5, 13)), rng.standard_normal((13, 7))
+    C = ozaki.ozaki_matmul(torch.as_tensor(a, device="cuda"),
+                           torch.as_tensor(b, device="cuda")).cpu().numpy()
+    assert np.abs(C - a @ b).max() / np.abs(a @ b).max() < 1e-14
+
+
+@pytest.mark.gpu
+def test_entry_float32_kernel_matches_float64_plain_on_card():
+    """entry()'s forward step in float32 goes through the kernel (one
+    launch) and holds the float64 plain route to the Gram's rounding bound
+    carried through |K|ᵀ|μ_v|."""
+    _need_card()
+    from gaussianprocessnode_tpu_torch.entry import entry
+    from gaussianprocessnode_tpu_torch.experiments.serving_bench import means_bound
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    fwd, args32 = entry(dtype=torch.float32)
+    _, args64 = entry()
+    before = sg.se_gram_cuda.launches
+    m32 = fwd(*args32)
+    assert sg.se_gram_cuda.launches == before + 1
+    m64 = fwd(*args64)
+    assert sg.se_gram_cuda.launches == before + 1
+    theta, Xu, X, mu = args64
+    scale, limit = means_bound(Kernel("se", transform="softplus"), theta, Xu, mu, X)
+    assert float(((m32.double() - m64).abs() / scale).max()) <= limit

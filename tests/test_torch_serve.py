@@ -228,7 +228,11 @@ def test_port_imports_with_jax_unavailable():
             "gaussianprocessnode_tpu_torch.nodes.probit, "
             "gaussianprocessnode_tpu_torch.ops.quadrature, "
             "gaussianprocessnode_tpu_torch.experiments.kin40k, "
-            "gaussianprocessnode_tpu_torch.experiments.banana; "
+            "gaussianprocessnode_tpu_torch.experiments.banana, "
+            "gaussianprocessnode_tpu_torch.experiments.serving_bench, "
+            "gaussianprocessnode_tpu_torch.experiments.refxu_record, "
+            "gaussianprocessnode_tpu_torch.ops.ozaki, "
+            "gaussianprocessnode_tpu_torch.entry; "
             "import chip_smoke; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
