@@ -18,9 +18,12 @@ statistics refresh; then trains the banana probit classifier at full width
 (M = 500, D = 2, 4,000 points in 20 batches of 200; synthetic data from
 --seed) for three fast epochs, two per-batch (``fit_banana``) epochs, and
 two float32 epochs of the per-batch kin40k trainer (``fit_kin40k``), each
-through the kernel and through the plain Gram, held to each other; and
-serves the banana classifier (benchmarks/banana_refxu_trained.npz, inducing
-inputs and 64 batches of 30,000 requests from --seed), checked against its
+through the kernel and through the plain Gram, held to each other, and
+runs the banana runner itself (3 epochs in chunks of 2, trained twice,
+held bit for bit to its first run, to one uninterrupted call and to a run
+given its own inducing inputs); and serves the banana classifier
+(benchmarks/banana_refxu_trained.npz, inducing inputs and 64 batches of
+30,000 requests from --seed), checked against its
 plain path and a float64 host reference; and trains the two toy workloads
 (toy regression 3 epochs, toy classification 2, in float64, held to the
 same epochs on the host, their syncs counted; one float32 epoch of each
@@ -102,6 +105,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -662,6 +666,8 @@ BAN_BATCHES = N_BAN // BATCH_BAN
 BANANA_LAUNCHES_PER_EPOCH = 1 + 2 * BAN_BATCHES
 FAITHFUL_LAUNCHES_PER_BATCH = 3
 FAITHFUL_EPOCHS = 2
+# the banana runner: 3 epochs in chunks of 2, so that a chunk boundary is crossed
+RUNNER_EPOCHS, RUNNER_CHUNK = 3, 2
 BANANA_NPZ = ROOT / "benchmarks" / "banana_refxu_trained.npz"
 # The first statistics pass from the cold carry evaluates the q(w) term
 # I1 = kxx − kᵀKuu⁻¹k with the cold Kuu⁻¹ (entries up to ~3e4 at θ0), where
@@ -708,19 +714,26 @@ def phase_banana(seed, card):
     - ``fit_kin40k`` (per batch) in float32 at kin40k width (M = 600, D = 8,
       20 batches of 500), two epochs, kernel against plain;
     - a fast epoch's θ-step and statistics pass timed: device time by CUDA
-      graph, host time eager; and the Gram at the banana shapes.
+      graph, host time eager; and the Gram at the banana shapes;
+    - the runner itself (``experiments/banana.py::run``), 3 epochs in
+      chunks of 2, trained twice (``warm_timing``): the warm run bit-equal
+      to the first, 41 launches per epoch, the result bit-equal to one
+      uninterrupted ``fit_banana_fast`` call from the same
+      ``init_banana_state`` carry, and a run given its own 500 drawn rows
+      through a .npy file bit-equal to the default draw.
 
     Each path's launch count is set to 0 just before it and read just
     after."""
     say("phase 7/16 banana training: start")
+    from gaussianprocessnode_tpu_torch.dists import gamma_mean
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (
         MinibatchCarry, banana_epoch_steps, default_optimizer, fit_banana, fit_banana_fast,
         fit_kin40k, init_banana_state)
-    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
-    from gaussianprocessnode_tpu_torch.utils.metrics import error_rate
+    from gaussianprocessnode_tpu_torch.utils.metrics import error_rate, num_error
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
     ds = brunner.load_data("synthetic", seed)
@@ -881,6 +894,42 @@ def phase_banana(seed, card):
               time_gram(Xu, Xu, var, ls, "banana Kuu", card),
               time_gram(Xu, Xb[0], var, ls, "banana Kux of a batch", card),
               time_gram(Xu, X_test, var, ls, "banana test predictions", card)]
+
+    # the runner itself, in chunks of RUNNER_CHUNK (its launch count is set
+    # to 0 just before its first run and read just after, by the runner)
+    chunk, brunner.CHUNK = brunner.CHUNK, RUNNER_CHUNK
+    try:
+        res = brunner.run(epochs=RUNNER_EPOCHS, seed=seed, warm_timing=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "xu.npy")
+            np.save(path, Xu.cpu().numpy())
+            given = brunner.run(epochs=RUNNER_EPOCHS, seed=seed, xu=brunner.load_xu(path))
+    finally:
+        brunner.CHUNK = chunk
+    th_u, nat_u, qw_u, _ = fit_banana_fast(kern, theta0, Xu, Xb, yb, pv, pw, RUNNER_EPOCHS,
+                                           resume_state=init_banana_state(kern, theta0, Xu,
+                                                                          pv, pw))
+    with torch.no_grad():
+        probs = brunner.predict(kern, th_u, Xu, nat_u, qw_u, X_test)
+    whole = {"theta": th_u.tolist(), "theta_softplus": softplus(th_u).tolist(),
+             "w_mean": float(gamma_mean(qw_u)),
+             "errors": float(num_error(torch.as_tensor(ds.y_test),
+                                       (probs >= 0.5).double().cpu()))}
+    same_whole = all(res[k] == v for k, v in whole.items())
+    same_given = given["m_inducing"] == M_BAN and all(given[k] == res[k] for k in whole)
+    print(f"banana runner, {RUNNER_EPOCHS} epochs in chunks of {RUNNER_CHUNK}: first run "
+          f"{res['first_seconds']:.4f} s, warm run {res['seconds']:.4f} s (host clock), "
+          f"se_gram launches {res['gram_launches']}, warm equals first "
+          f"{res['warm_equals_first']}, equals one uninterrupted fit_banana_fast call "
+          f"{same_whole}, given its own xu equals the default draw {same_given}; errors "
+          f"{res['errors']:.0f} / {res['n_test']} [{card}]", flush=True)
+    check(res["warm_equals_first"] is True, "banana runner: the warm run differs from the first")
+    check(res["gram_launches"] == RUNNER_EPOCHS * BANANA_LAUNCHES_PER_EPOCH,
+          f"banana runner: {res['gram_launches']} kernel launches in {RUNNER_EPOCHS} epochs, "
+          f"expected {RUNNER_EPOCHS * BANANA_LAUNCHES_PER_EPOCH}")
+    check(same_whole, "banana runner: chunked result differs from one uninterrupted call: "
+          f"{ {k: (res[k], v) for k, v in whole.items()} }")
+    check(same_given, "banana runner: given its own xu, the result differs")
     say("phase 7/16 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
@@ -892,7 +941,10 @@ def phase_banana(seed, card):
                 faithful=dict(launches=faithful_launches, epoch_host_ms=faithful_ms,
                               kernel_vs_plain=faithful_diffs),
                 kin40k_faithful=dict(launches=kin40k_launches, epoch_host_ms=kin40k_ms,
-                                     kernel_vs_plain=kin40k_diffs))
+                                     kernel_vs_plain=kin40k_diffs),
+                runner=dict(launches=res["gram_launches"], first_seconds=res["first_seconds"],
+                            warm_seconds=res["seconds"], errors=res["errors"],
+                            theta_softplus=res["theta_softplus"]))
 
 
 # μ_v recovered from the banana state: ‖Λ‖∞/λ_min ≈ 2.8e10, and the 60
@@ -3221,6 +3273,7 @@ def main(argv=None) -> int:
         "tpu_kernel": "ops/pallas_gram.py::_gram_kernel",
         "launches": (launches + train["launches"] + banana["launches"]
                      + banana["faithful"]["launches"] + banana["kin40k_faithful"]["launches"]
+                     + banana["runner"]["launches"]
                      + classifier["launches"] + toy["launches"]
                      + vsgp["collapsed"]["launches"] + vsgp["runner"]["launches"]
                      + vsgp["svgp"]["launches"]
@@ -3231,6 +3284,7 @@ def main(argv=None) -> int:
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
                              "kin40k_faithful": banana["kin40k_faithful"]["launches"],
+                             "banana_runner": banana["runner"]["launches"],
                              "classifier_serving": classifier["launches"],
                              "toy_regression_f32": toy["toy_regression"]["f32_launches"],
                              "toy_classification_f32":

@@ -16,15 +16,16 @@ does, in float64, whose Grams take the plain route by dtype
 (``ops/se_gram.py::se_gram_auto``); ``run(faithful=True,
 dtype=torch.float32)`` keeps it in float32, through the kernel.
 ``--ns-budget`` sets the faithful trainer's Newton–Schulz count (34 by
-default).
+default). ``--f64`` trains the fast path in float64 too, as the JAX
+runner's ``--f64`` does; its Grams then take the plain route by dtype.
 
     python -m gaussianprocessnode_tpu_torch.experiments.kin40k --epochs 500 [--faithful [--ns-budget 60]]
-        [--xu PATH] [--learning-rate LR] [--stats-refreshes G]
+        [--f64] [--xu PATH] [--learning-rate LR] [--stats-refreshes G]
 
 prints one JSON line: ``value`` (seconds for the epochs, host clock
 between two ``torch.cuda.synchronize()`` calls; with ``run(warm_timing=
 True)`` those of a second run from the same start), ``first_seconds``
-(the first run's), ``smse``, ``device`` (the
+(the first run's), ``dtype``, ``smse``, ``device`` (the
 card's name and power limit from nvidia-smi), ``gram_launches`` (kernel
 launches during the epochs) and ``data``. ``--data synthetic`` (the
 default) trains on ``utils/datasets.py::kin40k_synthetic`` data from
@@ -64,8 +65,9 @@ def faithful_chunk(ns_budget: int) -> int:
 
 
 def load_xu(path: str) -> np.ndarray:
-    """Inducing inputs (M, 8) from a JLD file (``utils/jld.py``) or an
-    array file numpy reads (.npy)."""
+    """Inducing inputs (M, D) from a JLD file (``utils/jld.py``) or an
+    array file numpy reads (.npy); the banana runner reads its ``--xu``
+    through it too."""
     if path.endswith(".jld"):
         from ..utils.jld import load_jld
 
@@ -221,13 +223,16 @@ def main(argv=None) -> int:
                     help="the per-batch schedule fit_kin40k, in float64")
     ap.add_argument("--ns-budget", type=int, default=KIN40K_BATCH_NS_ITERS,
                     help="fit_kin40k's Newton-Schulz iterations per batch (--faithful)")
+    ap.add_argument("--f64", action="store_true",
+                    help="train the fast path in float64 (--faithful always does)")
     ap.add_argument("--xu", metavar="PATH", help="inducing inputs (.npy or .jld)")
     ap.add_argument("--learning-rate", type=float, default=0.001)
     ap.add_argument("--stats-refreshes", type=int, default=1,
                     help="fit_kin40k_fast's q(v) statistics refreshes per epoch")
     args = ap.parse_args(argv)
     out = run(epochs=args.epochs, seed=args.seed, data=args.data, faithful=args.faithful,
-              ns_budget=args.ns_budget, xu=None if args.xu is None else load_xu(args.xu),
+              dtype=torch.float64 if args.f64 else None, ns_budget=args.ns_budget,
+              xu=None if args.xu is None else load_xu(args.xu),
               learning_rate=args.learning_rate, stats_refreshes=args.stats_refreshes)
     print(json.dumps(out), flush=True)
     return 0
