@@ -58,7 +58,7 @@ set_sync_debug_mode("error")) held bit for bit to the single-device
 trainers and the kin40k one to its plain-Gram route, the tensor-parallel
 sweep (M = 600) and prediction held to the dense sweep, and the
 sequence-parallel GPSSM smoother (T = 300, M = 48, 25 sweeps, float32)
-held to the Jacobi smoother; and, last, runs the Ozaki f64 product
+held to the Jacobi smoother; and runs the Ozaki f64 product
 (``ops/ozaki.py``, int8 groups on cuBLASLt through ``torch._int_mm``, a
 library route and not a ported kernel): ``torch._int_mm``'s shape rules and
 layouts, each group's int32 product at K = 10,000 against the exact
@@ -68,7 +68,13 @@ cuBLAS's f64 product there and in a 28-iteration Newton–Schulz chain on
 the trained Λ; the serving record (``experiments/serving_bench.py``: its
 gate, then 1024- and 30,000-request batches one call each and 64 batches
 of 30,000 queued back to back) and the flagship forward step
-(``entry.py``) in float32 through the kernel against float64. It prints
+(``entry.py``) in float32 through the kernel against float64; and, last,
+runs the three headline runners through their ``run`` functions at full
+width (kin40k fast in float32 and float64 and banana fast for 100 epochs,
+the collapsed VSGP for its 400 steps) and holds each figure and θ to the
+JAX package's on the same data (``scripts/headline_jax_figures.json``,
+written on the CPU by ``scripts/headline_jax_parity.py``) within the bounds
+that the JAX package's rounding twins set. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -90,6 +96,8 @@ of 30,000 queued back to back) and the flagship forward step
   times;
 - phase 16's readings, and one JSON line {"library_routes": [...]} with
   the Ozaki product's (a cuBLASLt route, not a ported kernel);
+- per headline runner, its seconds, its figure and θ beside the JAX
+  package's with their bounds, and its launches, with the card;
 - one JSON line {"kernels": [...]} with each kernel's launches on every
   path (``launches_by_path``), its disagreement with the plain version and
   those times;
@@ -165,7 +173,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/16 device: start")
+    say("phase 1/17 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -179,12 +187,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/16 device: done")
+    say("phase 1/17 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/16 build: start")
+    say("phase 2/17 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -194,7 +202,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/16 build: done")
+    say("phase 2/17 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -225,7 +233,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/16 kernel vs plain: start")
+    say("phase 3/17 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -301,12 +309,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/16 kernel vs plain: done")
+    say("phase 3/17 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/16 serving: start")
+    say("phase 4/17 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.experiments import serving_bench
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -375,7 +383,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/16 serving: done")
+    say("phase 4/17 serving: done")
     return handle, X, launches
 
 
@@ -451,7 +459,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/16 times: start")
+    say("phase 5/17 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -469,7 +477,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/16 times: done")
+    say("phase 5/17 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -544,7 +552,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/16 training: start")
+    say("phase 6/17 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -647,7 +655,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/16 training: done")
+    say("phase 6/17 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -724,7 +732,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/16 banana training: start")
+    say("phase 7/17 banana training: start")
     from gaussianprocessnode_tpu_torch.dists import gamma_mean
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
@@ -930,7 +938,7 @@ def phase_banana(seed, card):
     check(same_whole, "banana runner: chunked result differs from one uninterrupted call: "
           f"{ {k: (res[k], v) for k, v in whole.items()} }")
     check(same_given, "banana runner: given its own xu, the result differs")
-    say("phase 7/16 banana training: done")
+    say("phase 7/17 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -963,7 +971,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/16 classifier serving: start")
+    say("phase 8/17 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -1066,7 +1074,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/16 classifier serving: done")
+    say("phase 8/17 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1131,7 +1139,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/16 toy workloads: start")
+    say("phase 9/17 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1272,7 +1280,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/16 toy workloads: done")
+    say("phase 9/17 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1329,7 +1337,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/16 VSGP and FITC baselines: start")
+    say("phase 10/17 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1528,7 +1536,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/16 VSGP and FITC baselines: done")
+    say("phase 10/17 VSGP and FITC baselines: done")
     return out
 
 
@@ -1590,7 +1598,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/16 MultiSGP node and M-step objective: start")
+    say("phase 11/17 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1723,7 +1731,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/16 MultiSGP node and M-step objective: done")
+    say("phase 11/17 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -2022,7 +2030,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/16 GPSSM family: start")
+    say("phase 12/17 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2173,7 +2181,7 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/16 GPSSM family: done")
+    say("phase 12/17 GPSSM family: done")
     return out
 
 # the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
@@ -2398,7 +2406,7 @@ def phase_gplvm(seed, card):
       just before; the two GPLVM Gram shapes held to plain and timed;
     - each ``infer/model.py`` class's ``infer`` bit for bit against its
       direct call on the card."""
-    say("phase 13/16 GPLVM and the model front-end: start")
+    say("phase 13/17 GPLVM and the model front-end: start")
     from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -2513,7 +2521,7 @@ def phase_gplvm(seed, card):
     check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
     out["front_end_equal"] = same
     out["launches_by_path"] = {"gplvm_f32_sweep": l32}
-    say("phase 13/16 GPLVM and the model front-end: done")
+    say("phase 13/17 GPLVM and the model front-end: done")
     return out
 
 
@@ -2589,7 +2597,7 @@ def phase_legacy(card):
       the card and on the host;
     - a profiled sequential smoother call (T = 400) and a profiled
       colored-EM epoch at reduced depth (4 E-sweeps, 2 adjoint VJPs)."""
-    say("phase 14/16 legacy GP families: start")
+    say("phase 14/17 legacy GP families: start")
     from gaussianprocessnode_tpu_torch.experiments import legacy_gp as lg
     from gaussianprocessnode_tpu_torch.infer.pad_learn import fit_gppad_colored_theta
     from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_smooth
@@ -2687,7 +2695,7 @@ def phase_legacy(card):
           "the legacy families launched the float32 SE Gram kernel")
     out["launches"] = main_launches + rest
     out["launches_by_path"] = {"legacy_padscale": main_launches, "legacy_workloads": rest}
-    say("phase 14/16 legacy GP families: done")
+    say("phase 14/17 legacy GP families: done")
     return out
 
 
@@ -2757,7 +2765,7 @@ def phase_parallel(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 15/16 parallel layer (world size 1 over NCCL): start")
+    say("phase 15/17 parallel layer (world size 1 over NCCL): start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.experiments import pendulum as prunner
@@ -2959,7 +2967,7 @@ def phase_parallel(seed, card):
                                "dp_banana_nccl": out["dp_banana"]["launches"],
                                "tp_sweep_predict_nccl": tp_launches,
                                "sp_gpssm_nccl": sp_launches}
-    say("phase 15/16 parallel layer (world size 1 over NCCL): done")
+    say("phase 15/17 parallel layer (world size 1 over NCCL): done")
     return out
 
 
@@ -3219,7 +3227,7 @@ def phase_records(seed, card):
 
 
 def phase_16(seed, z, card):
-    say("phase 16/16 Ozaki f64 product, serving record, entry: start")
+    say("phase 16/17 Ozaki f64 product, serving record, entry: start")
     oz = phase_ozaki(seed, z, card)
     recs = phase_records(seed, card)
     route = {"name": "ozaki_matmul", "route": "cuBLASLt int8 GEMM (torch._int_mm), a library "
@@ -3227,8 +3235,72 @@ def phase_16(seed, z, card):
              "counterpart_of": "gaussianprocessnode_tpu/ops/ozaki.py:103 (jnp.matmul int8, "
              "no Pallas kernel)", **oz}
     print(json.dumps({"library_routes": [route]}), flush=True)
-    say("phase 16/16 Ozaki f64 product, serving record, entry: done")
+    say("phase 16/17 Ozaki f64 product, serving record, entry: done")
     return recs
+
+
+# phase 17: the headline runners at full width, held to the JAX package's
+# figures on the same data (scripts/headline_jax_parity.py computed them on
+# the CPU, with rounding twins, and wrote scripts/headline_jax_figures.json)
+
+
+def phase_headline(card):
+    """The port's three headline runners through their ``run`` functions on
+    the card, at full width (kin40k M = 600 on 10,000 rows in 20 batches of
+    500 and 30,000 test rows; banana M = 500 on 4,000 rows in 20 batches of
+    200; the collapsed VSGP M = 600 on 10,000 rows), seed 1 as their
+    command lines: kin40k fast in float32 and ``--f64`` and banana fast for
+    ``smoke_depth`` epochs (100: the first chunk of the full run), the
+    collapsed VSGP for its full 400 steps. Each figure and θ is held to the
+    JAX package's on the same data (``scripts/headline_jax_figures.json``)
+    within the bounds its rounding twins set there. Each runner's launch
+    count is set to 0 just before it and read just after; the runners set
+    it to 0 again where their training starts, so the reading holds the
+    training, the prediction and, for the collapsed run, its profiled
+    chunk."""
+    say("phase 17/17 headline runners against the JAX figures: start")
+    from gaussianprocessnode_tpu_torch.experiments import banana, headline, kin40k
+    from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
+
+    figs = headline.load()
+    depth = figs["smoke_depth"]
+    runs = {"kin40k_f32": lambda: kin40k.run(epochs=depth["kin40k_f32"], device="cuda"),
+            "kin40k_f64": lambda: kin40k.run(epochs=depth["kin40k_f64"], device="cuda",
+                                             dtype=torch.float64),
+            "banana": lambda: banana.run(epochs=depth["banana"], device="cuda"),
+            "collapsed": lambda: vb.run_kin40k_collapsed(steps=depth["collapsed"],
+                                                         device="cuda")}
+    out, launches = {}, {}
+    for trainer in headline.TRAINERS:
+        se_gram_cuda.launches = 0
+        t = time.perf_counter()
+        line = runs[trainer]()
+        seconds = time.perf_counter() - t
+        launches[f"headline_{trainer}"] = se_gram_cuda.launches
+        held = headline.hold(trainer, line, figs)
+        train_s = line["value"]
+        print(f"headline {trainer}: {held['depth']} {'steps' if trainer == 'collapsed' else 'epochs'}"
+              f" in {train_s:.3f} s of training ({seconds:.3f} s the call); {held['figure']} "
+              f"port {held['port']} JAX {held['jax']} ({held['kind'][0]}diff {held['diff']:.3e}, "
+              f"bound {held['bound']:.3e}); theta (softplus) rel {held['theta_softplus_rel']:.3e} "
+              f"(bound {held['theta_softplus_rtol']:.3e}); se_gram launches "
+              f"{launches[f'headline_{trainer}']} (training {line['gram_launches']}) [{card}]",
+              flush=True)
+        check(held["within"], f"headline {trainer}: outside the JAX figures' bounds: {held}")
+        check(launches[f"headline_{trainer}"] >= line["gram_launches"] and
+              (line["gram_launches"] == 0) == (trainer == "kin40k_f64"),
+              f"headline {trainer}: {launches[f'headline_{trainer}']} launches, training "
+              f"{line['gram_launches']}")
+        out[trainer] = {**held, "seconds": train_s, "call_seconds": seconds,
+                        "gram_launches_training": line["gram_launches"]}
+    ratio_port = out["kin40k_f32"]["port"] / out["kin40k_f64"]["port"]
+    ratio_jax = figs["kin40k_f32_over_f64"][str(depth["kin40k_f32"])]
+    print(f"headline kin40k float32 over float64 SMSE: port {ratio_port:.4f}, JAX "
+          f"{ratio_jax:.4f} [{card}]", flush=True)
+    say("phase 17/17 headline runners against the JAX figures: done")
+    return {**out, "f32_over_f64": {"port": ratio_port, "jax": ratio_jax},
+            "launches_by_path": launches, "launches": sum(launches.values())}
 
 
 def main(argv=None) -> int:
@@ -3260,6 +3332,7 @@ def main(argv=None) -> int:
         legacy = phase_legacy(card)
         parallel = phase_parallel(args.seed, card)
         records = phase_16(args.seed, z, card)
+        headline = phase_headline(card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -3279,7 +3352,7 @@ def main(argv=None) -> int:
                      + vsgp["svgp"]["launches"]
                      + vsgp["fitc"]["launches"] + multi["objective"]["launches"]
                      + gpssm["launches"] + gplvm["launches"] + legacy["launches"]
-                     + parallel["launches"] + records["launches"]),
+                     + parallel["launches"] + records["launches"] + headline["launches"]),
         "launches_by_path": {"serving": launches, "training": train["launches"],
                              "banana_training": banana["launches"],
                              "banana_faithful": banana["faithful"]["launches"],
@@ -3297,7 +3370,8 @@ def main(argv=None) -> int:
                              **gpssm["launches_by_path"], **gplvm["launches_by_path"],
                              **legacy["launches_by_path"], **parallel["launches_by_path"],
                              "serving_record": records["serving_record_launches"],
-                             "entry_f32": records["entry"]["launches"]},
+                             "entry_f32": records["entry"]["launches"],
+                             **headline["launches_by_path"]},
         "launches_per_collapsed_step": vsgp["collapsed"]["launches"] / VSGP_STEPS,
         "launches_per_svgp_epoch": vsgp["svgp"]["launches"] / SVGP_EPOCHS,
         "launches_training_per_epoch": train["launches_per_epoch"],
@@ -3337,6 +3411,7 @@ def main(argv=None) -> int:
         "legacy_gp": legacy,
         "parallel": {k: v for k, v in parallel.items() if k != "launches_by_path"},
         "records": records,
+        "headline": {k: v for k, v in headline.items() if k != "launches_by_path"},
         "serve_fused_preds_per_s": serving["pps"],
         "serve_batch_ms": serving["batch_ms"],
         "serve_enqueue_ms": serving["enqueue_ms"],

@@ -34,6 +34,11 @@ def default_dtype() -> torch.dtype:
     return torch.float64 if _X64 else torch.float32
 
 
+def x64_enabled() -> bool:
+    """Whether float64 is the default (``GPNODE_X64``, on unless set to 0)."""
+    return _X64
+
+
 def default_device() -> str:
     """Entry points run on the card unless the caller passes another device."""
     return "cuda"

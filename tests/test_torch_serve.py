@@ -231,6 +231,7 @@ def test_port_imports_with_jax_unavailable():
             "gaussianprocessnode_tpu_torch.experiments.banana, "
             "gaussianprocessnode_tpu_torch.experiments.serving_bench, "
             "gaussianprocessnode_tpu_torch.experiments.refxu_record, "
+            "gaussianprocessnode_tpu_torch.experiments.headline, "
             "gaussianprocessnode_tpu_torch.ops.ozaki, "
             "gaussianprocessnode_tpu_torch.entry; "
             "import chip_smoke; print('ok')")
