@@ -84,8 +84,9 @@ and sequence parallelism over torch.distributed):
     utils.jld              the reference's JLD files (h5py)
     utils.metrics          SMSE, error counts
     utils.checkpoint       save / load a tree of tensors (one .npz)
-    utils.configs, utils.logging
-                           the workloads' configurations, a metrics logger
+    utils.configs          the workloads' configurations
+    utils.tracing          spans of the serving path in memory, recorded
+                           while turned on (off by default)
     utils.driver           ``chunked_run``
     utils.optim            bare optax AdaMax at Flux's defaults, optax's
                            Adam, scipy L-BFGS-B and Nelder–Mead over

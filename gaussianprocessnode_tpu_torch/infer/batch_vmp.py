@@ -40,6 +40,7 @@ from ..nodes import unisgp
 from ..nodes.unisgp import UniSGPArgs
 from ..ops.linalg import chol_lower, chol_solve, chol_upper, logdet_from_chol, sym
 from ..ops.psi import psi_batch_exact
+from ..utils import tracing
 
 __all__ = ["VMPResult", "prior_energy_mvn", "prior_energy_gamma", "regression_vmp",
            "classification_vmp", "predict_out", "predict_probit"]
@@ -228,8 +229,10 @@ def predict_out(kernel, theta, Xu, X_test, mu_v, w_mean):
     ``w_mean`` is a tensor (0-dim, any float dtype) on the inputs' device,
     so neither the mean nor the variance waits on the host."""
     Kut = kernel(theta, Xu, X_test)
-    mean = Kut.T @ mu_v
-    var = torch.empty_like(mean).copy_((1.0 / w_mean).expand(mean.shape))
+    with tracing.span("serve.matvec"):
+        mean = Kut.T @ mu_v
+    with tracing.span("serve.fill"):
+        var = torch.empty_like(mean).copy_((1.0 / w_mean).expand(mean.shape))
     return mean, var
 
 
@@ -237,4 +240,5 @@ def predict_probit(kernel, theta, Xu, X_test, mu_v, w_mean):
     """Class probability P(y=1|x*) = Φ(m/√(1+v)) through the Probit out rule
     (reference: classification_banana.ipynb cell 13)."""
     mean, var = predict_out(kernel, theta, Xu, X_test, mu_v, w_mean)
-    return probit_node.out_probability(Gaussian(mean, var))
+    with tracing.span("probit.phi"):
+        return probit_node.out_probability(Gaussian(mean, var))

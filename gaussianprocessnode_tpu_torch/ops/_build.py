@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import tracing
+
 __all__ = ["NVCC_FLAGS", "load_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -58,31 +60,33 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    sources = _sources()
-    so = _BUILD_DIR / f"gpn_kernels-{_digest(sources)}.so"
-    log = so.with_suffix(".log")
-    t0 = time.perf_counter()
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        log_tmp = log.with_name(f".{log.name}.{os.getpid()}.tmp")
-        log_tmp.write_text(proc.stdout + proc.stderr)
-        os.replace(log_tmp, log)
-        os.replace(tmp, so)
-        _log["built"] = True
-    else:
-        _log["built"] = False
-    _log["seconds"] = time.perf_counter() - t0
-    _log["path"] = str(so)
-    _log["ptxas"] = log.read_text() if log.exists() else ""
-    _lib = ctypes.CDLL(str(so))
+    with tracing.span("ops.load_library"):
+        sources = _sources()
+        so = _BUILD_DIR / f"gpn_kernels-{_digest(sources)}.so"
+        log = so.with_suffix(".log")
+        t0 = time.perf_counter()
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+            log_tmp = log.with_name(f".{log.name}.{os.getpid()}.tmp")
+            log_tmp.write_text(proc.stdout + proc.stderr)
+            os.replace(log_tmp, log)
+            os.replace(tmp, so)
+            _log["built"] = True
+        else:
+            _log["built"] = False
+        _log["seconds"] = time.perf_counter() - t0
+        _log["path"] = str(so)
+        _log["ptxas"] = log.read_text() if log.exists() else ""
+        _lib = ctypes.CDLL(str(so))
+        tracing.attrs(built=_log["built"])
     return _lib
 
 

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import tracing
+
 __all__ = [
     "sqdist",
     "se_gram",
@@ -112,6 +114,7 @@ class Kernel:
     transform: str = "identity"
     use_kernel: bool = False
 
+    @tracing.traced("kernel.params")
     def params(self, theta):
         theta = torch.as_tensor(theta)
         if self.transform == "softplus":

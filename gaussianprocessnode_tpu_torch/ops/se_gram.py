@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from . import kernels as _k
 
 __all__ = ["SE_GRAM_MAX_D", "se_gram_cuda", "se_gram_reference", "se_gram_route",
@@ -110,12 +111,13 @@ def se_gram_cuda(Z, X, variance, lengthscales):
     # the library launches on the calling thread's current device: make it
     # Z's (entering the context only when needed keeps the per-launch host
     # cost down)
-    on_current = Z.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if on_current else torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(Z.data_ptr(), X.data_ptr(), lengthscales.data_ptr(),
-                lengthscales.numel(), variance.data_ptr(), K.data_ptr(),
-                M, N, Z.shape[1], stream)
+    with tracing.span("se_gram.launch"):
+        on_current = Z.device.index == torch.cuda.current_device()
+        with contextlib.nullcontext() if on_current else torch.cuda.device(Z.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(Z.data_ptr(), X.data_ptr(), lengthscales.data_ptr(),
+                    lengthscales.numel(), variance.data_ptr(), K.data_ptr(),
+                    M, N, Z.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"se_gram_cuda: launch failed ({rc}): "
                            f"{err_str(rc).decode()}")
@@ -208,6 +210,7 @@ class _SEGramFused(torch.autograd.Function):
                 ls_bar.to(lengthscales.dtype))
 
 
+@tracing.traced("se_gram.dispatch")
 def se_gram_fused(Z, X, variance, lengthscales):
     """Differentiable SE Gram: ``se_gram_auto`` forward, analytic matmul-only
     VJP. Drop-in for ``ops.kernels.se_gram`` (argument order (Z, X, σ², ℓ))."""

@@ -23,6 +23,7 @@ from .infer.batch_vmp import predict_out, predict_probit
 from .infer.chain_smoother import filter_frozen, filter_stream
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
 from .parallel.comm import rank_slice
+from .utils import tracing
 from .utils.profiling import synchronize
 
 __all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "serve_fused", "throughput",
@@ -65,6 +66,7 @@ class SGPRegressor:
     w_mean: torch.Tensor
 
     @classmethod
+    @tracing.traced("serve.from_natural")
     def from_natural(cls, kernel, theta, Xu, qv_nat: MvGaussianNat, w_mean,
                      dtype=None, device="cuda"):
         """Recover μ_v from ``qv_nat`` in its own dtype (float64 for the
@@ -80,6 +82,7 @@ class SGPRegressor:
         return cls(kernel, torch.as_tensor(theta, device=dev).to(dtype),
                    Xu.to(dtype), mu.to(dtype), w.reshape(()))
 
+    @tracing.traced("serve.predict")
     def __call__(self, X_test):
         X = torch.as_tensor(X_test, dtype=self.Xu.dtype, device=self.Xu.device)
         with torch.no_grad():
@@ -118,6 +121,7 @@ class SGPClassifier:
                                         w.to(torch.float64), dtype=dtype, device=dev)
         return cls(reg.kernel, reg.theta, reg.Xu, reg.mu_v, reg.w_mean)
 
+    @tracing.traced("serve.predict")
     def probabilities(self, X_test):
         X = torch.as_tensor(X_test, dtype=self.Xu.dtype, device=self.Xu.device)
         with torch.no_grad():

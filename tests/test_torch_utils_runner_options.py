@@ -1,5 +1,5 @@
-"""The port's last utilities (utils/checkpoint.py, configs.py, logging.py,
-driver.py) and the runners' chunk, checkpoint, sequence-parallel and
+"""The port's last utilities (utils/checkpoint.py, configs.py, driver.py)
+and the runners' chunk, checkpoint, sequence-parallel and
 kin40k options, and experiments/pit_bench.py, on the CPU at small depth.
 
 Each runner option is held to the JAX runner's sequence of library calls
@@ -43,7 +43,6 @@ from gaussianprocessnode_tpu.parallel import seq_parallel as jsp
 from gaussianprocessnode_tpu.parallel.sharding import make_mesh as jmake_mesh
 from gaussianprocessnode_tpu.utils import configs as jconfigs
 from gaussianprocessnode_tpu.utils import driver as jdriver
-from gaussianprocessnode_tpu.utils import logging as jlogging
 from gaussianprocessnode_tpu_torch.dists import MvGaussianNat
 from gaussianprocessnode_tpu_torch.experiments import gplvm as grunner
 from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
@@ -53,7 +52,6 @@ from gaussianprocessnode_tpu_torch.infer.minibatch import FastCarry, fit_kin40k_
 from gaussianprocessnode_tpu_torch.utils import configs, datasets
 from gaussianprocessnode_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from gaussianprocessnode_tpu_torch.utils.driver import chunked_run
-from gaussianprocessnode_tpu_torch.utils.logging import MetricsLogger
 
 JK = JKernel("se", transform="softplus")
 
@@ -149,21 +147,6 @@ def test_configs_are_the_jax_packages():
     for name in configs.__all__:
         assert dataclasses.asdict(getattr(configs, name)()) == \
             dataclasses.asdict(getattr(jconfigs, name)())
-
-
-def test_metrics_logger_is_the_jax_packages(tmp_path):
-    port, jaxl = MetricsLogger(), jlogging.MetricsLogger()
-    for lg in (port, jaxl):
-        for i, v in enumerate((3.0, 2.5, 2.25)):
-            lg.log("fe", v)
-        lg.log("smse", 0.08, step=40)
-    assert port.summary() == jaxl.summary() == {"fe": 2.25, "smse": 0.08}
-    assert port.last("fe") == 2.25
-    port.to_json(str(tmp_path / "m.json"))
-    port.to_csv(str(tmp_path / "m.csv"))
-    series = json.loads((tmp_path / "m.json").read_text())
-    assert [r["step"] for r in series["fe"]] == [0, 1, 2] and series["smse"][0]["step"] == 40
-    assert (tmp_path / "m.csv").read_text().splitlines()[0] == "name,step,t,value"
 
 
 # --- the pendulum runner ----------------------------------------------------------
