@@ -10,10 +10,17 @@ mat-vec, and for a classifier the Φ epilogue. With
 the inducing inputs against the 2·D cubature points per observation.
 ``shard_requests`` gives each rank of a data-parallel server its slice of
 a request batch; the state is replicated, so no collective is needed.
+
+On the card each regression or classification handle holds its calls as
+CUDA graphs (:class:`GraphCache`): a call shape's second call captures the
+whole call (softplus θ, the Gram, Kᵀμ_v, the fill, Φ) and every later call
+replays it, so the host no longer paces the device. The kernels, their
+order and the answers are those of an eager call.
 """
 
 import time
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -22,12 +29,23 @@ from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from .infer.batch_vmp import predict_out, predict_probit
 from .infer.chain_smoother import filter_frozen, filter_stream
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
+from .ops.se_gram import se_gram_cuda
 from .parallel.comm import rank_slice
 from .utils import tracing
 from .utils.profiling import synchronize
 
-__all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "serve_fused", "throughput",
-           "throughput_fused", "shard_requests"]
+__all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "GraphCache", "graph_counts",
+           "serve_fused", "throughput", "throughput_fused", "shard_requests"]
+
+# graphs a handle keeps: each holds a private memory pool the size of its
+# call's Gram (629 MB at 600 × 262,144)
+GRAPH_SLOTS = 4
+
+# the graph caches' engagement over the process: graphs captured, calls
+# replayed, calls a cache admitted but ran eagerly (a key's first call, a
+# key whose capture raised), and captures that raised. Every admitted call
+# is a replay or eager.
+graph_counts = {"captures": 0, "replays": 0, "eager": 0, "fallbacks": 0}
 
 
 def shard_requests(X_test, group=None):
@@ -49,6 +67,115 @@ def _recover_mu_v(nat: MvGaussianNat, ns_iters: int = 60, ir_rounds: int = 4):
     return ir_solve(prec, nat.xi, cov, rounds=ir_rounds)
 
 
+class _CallGraph:
+    """One handle call held as a CUDA graph. Captured on a side stream from
+    ``call(x)``, x a private copy of the input; a later call copies its
+    input into x, replays, and returns clones of the outputs, so what it
+    returns never shares memory with the graph or with another call's.
+    ``launches``: the Gram kernels the capture queued, which each replay
+    runs; the capture's own count is taken back from
+    ``se_gram_cuda.launches`` (nothing ran), a replay adds it."""
+
+    def __init__(self, call, X):
+        self.x = X.clone(memory_format=torch.contiguous_format)
+        side = torch.cuda.Stream(X.device)
+        side.wait_stream(torch.cuda.current_stream(X.device))
+        self.graph = torch.cuda.CUDAGraph()
+        before = se_gram_cuda.launches
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin()
+                try:
+                    self.out = call(self.x)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            self.launches = se_gram_cuda.launches - before
+            se_gram_cuda.launches = before
+        torch.cuda.current_stream(X.device).wait_stream(side)
+
+    def __call__(self, X):
+        self.x.copy_(X)
+        self.graph.replay()
+        se_gram_cuda.launches += self.launches
+        if isinstance(self.out, tuple):
+            return tuple(o.clone() for o in self.out)
+        return self.out.clone()
+
+
+def _capturable(X) -> bool:
+    """A call on ``X`` may be graphed: a CUDA tensor, gradients off, and the
+    current stream not already capturing (a handle called inside another
+    graph's capture runs into that graph)."""
+    return (X.is_cuda and not torch.is_grad_enabled()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class GraphCache:
+    """A handle's calls held as CUDA graphs, keyed by what a call can
+    observe: the function it resolved (``predict_out`` or
+    ``predict_probit``, looked up at call time) and the input's shape,
+    dtype and device. A key's first call runs eagerly (the warm-up that
+    creates the libraries' handles and workspaces); its second captures
+    (``capture(call, X)``, a :class:`_CallGraph`) and answers by the
+    replay; later calls replay. At most ``GRAPH_SLOTS`` graphs are kept,
+    the least recently used evicted. A capture that raises leaves its key
+    eager for the life of the cache. Calls ``graphable`` refuses (CPU
+    tensors, gradients on, inside another capture) run eagerly and are not
+    counted. Engagement is counted in :data:`graph_counts`. A graph's
+    replays share its buffers, so one handle's calls come from one thread,
+    as a server's request loop makes them."""
+
+    def __init__(self, capture=_CallGraph, graphable=_capturable):
+        self.capture, self.graphable = capture, graphable
+        self.graphs = OrderedDict()  # key → captured call, least recently used first
+        self.warm = set()            # keys called once
+        self.eager = set()           # keys whose capture raised
+
+    def __call__(self, fn, call, X):
+        """``call(X)``, or its graph's replay; ``fn`` is the function
+        ``call`` runs, part of the key."""
+        if not self.graphable(X):
+            return call(X)
+        key = (fn, tuple(X.shape), X.dtype, X.device)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if key not in self.warm or key in self.eager:
+                self.warm.add(key)
+                graph_counts["eager"] += 1
+                return call(X)
+            if len(self.graphs) >= GRAPH_SLOTS:
+                self.graphs.popitem(last=False)
+            try:
+                with tracing.span("serve.capture"):
+                    graph = self.capture(call, X)
+            except RuntimeError:  # an operation the capture forbids, such as a sync
+                self.eager.add(key)
+                graph_counts["fallbacks"] += 1
+                graph_counts["eager"] += 1
+                return call(X)
+            graph_counts["captures"] += 1
+            self.graphs[key] = graph
+        else:
+            self.graphs.move_to_end(key)
+        graph_counts["replays"] += 1
+        with tracing.span("serve.replay"):
+            tracing.attrs(launches=graph.launches)
+            return graph(X)
+
+
+def _served(handle, out, X_test):
+    """``out(kernel, θ, Xu, X, μ_v, w̄)`` of a regression or classification
+    handle on ``X_test`` in the handle's dtype and device, through its
+    graph cache, gradients off. The caller passes ``out`` as it resolves
+    it at call time, so a function patched into this module takes effect
+    on the next call."""
+    X = torch.as_tensor(X_test, dtype=handle.Xu.dtype, device=handle.Xu.device)
+    with torch.no_grad():
+        return handle._graphs(out, lambda x: out(handle.kernel, handle.theta, handle.Xu, x,
+                                                 handle.mu_v, handle.w_mean), X)
+
+
 @dataclass(frozen=True)
 class SGPRegressor:
     """Frozen serving handle for a UniSGP regression model.
@@ -64,6 +191,8 @@ class SGPRegressor:
     Xu: torch.Tensor
     mu_v: torch.Tensor
     w_mean: torch.Tensor
+    _graphs: GraphCache = field(default_factory=GraphCache, init=False, repr=False,
+                                compare=False)
 
     @classmethod
     @tracing.traced("serve.from_natural")
@@ -84,10 +213,7 @@ class SGPRegressor:
 
     @tracing.traced("serve.predict")
     def __call__(self, X_test):
-        X = torch.as_tensor(X_test, dtype=self.Xu.dtype, device=self.Xu.device)
-        with torch.no_grad():
-            return predict_out(self.kernel, self.theta, self.Xu, X, self.mu_v,
-                               self.w_mean)
+        return _served(self, predict_out, X_test)
 
 
 @dataclass(frozen=True)
@@ -103,6 +229,8 @@ class SGPClassifier:
     Xu: torch.Tensor
     mu_v: torch.Tensor
     w_mean: torch.Tensor
+    _graphs: GraphCache = field(default_factory=GraphCache, init=False, repr=False,
+                                compare=False)
 
     @classmethod
     def from_natural(cls, kernel, theta, Xu, qv_nat: MvGaussianNat,
@@ -123,10 +251,7 @@ class SGPClassifier:
 
     @tracing.traced("serve.predict")
     def probabilities(self, X_test):
-        X = torch.as_tensor(X_test, dtype=self.Xu.dtype, device=self.Xu.device)
-        with torch.no_grad():
-            return predict_probit(self.kernel, self.theta, self.Xu, X, self.mu_v,
-                                  self.w_mean)
+        return _served(self, predict_probit, X_test)
 
     def __call__(self, X_test, threshold: float = 0.5):
         return (self.probabilities(X_test) >= threshold).to(self.Xu.dtype)

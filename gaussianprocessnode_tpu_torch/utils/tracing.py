@@ -37,6 +37,12 @@ The program's spans (names as the benchmark's layers read them):
 - ``serve.matvec`` and ``serve.fill``: Kᵀμ_v and the 1/w̄ fill of
   ``infer.batch_vmp.predict_out``;
 - ``probit.phi``: Φ in ``infer.batch_vmp.predict_probit``;
+- ``serve.capture``: a handle call captured as a CUDA graph
+  (``serve.GraphCache``; the spans above, inside it, queue work that runs
+  only in the replays);
+- ``serve.replay``: a handle call answered by its graph's replay (input
+  copy, replay, output clones; attribute ``launches``, the Gram kernels
+  the replay runs, which record no ``se_gram.launch``);
 - ``serve.from_natural``: μ_v's recovery when a handle is built;
 - ``ops.load_library``: building or loading the kernel library
   (attribute ``built``);

@@ -29,9 +29,13 @@ profiler's. It writes both kinds, with ``parent`` and ``request``, to
   the largest gaps, every gap over 1 ms with the shortest spans inside it,
   and idle seconds by that label and by the innermost span open through
   each part of a gap;
-- ``launches``: ``se_gram.launch`` spans in the sub-window against the
-  trace's ``se_gram_kernel`` records;
-- ``gc``: the collections during the window, by generation.
+- ``launches``: the Gram launches queued in the sub-window (eager calls'
+  ``se_gram.launch`` spans, and each ``serve.replay`` span's captured
+  launches) against the trace's ``se_gram_kernel`` records;
+- ``gc``: the collections during the window, by generation;
+- ``graphs``: the serving handles' graph engagement over the run, set-up
+  included (``serve.graph_counts``: captures, replays, eager calls,
+  fallbacks) and the replays' share of the calls.
 """
 
 import time
@@ -204,12 +208,23 @@ def labelled(trace, program, n: int = 10):
 
 
 def launches(trace, program):
-    """``se_gram.launch`` spans that started in the sub-window, and the
-    trace's ``se_gram_kernel`` records."""
+    """The Gram kernels the host queued in the sub-window against the
+    trace's ``se_gram_kernel`` records: ``se_gram.launch`` spans of eager
+    calls (a launch inside a ``serve.capture`` queues nothing), and for each
+    ``serve.replay`` span the launches its graph's capture made (its
+    ``launches`` attribute); ``launches`` is their sum."""
     lo, hi = trace.window
-    spans = sum(1 for s in program if s.name == "se_gram.launch"
-                and lo <= s.start_ns / 1e9 <= hi)
-    return {"launch_spans": spans, "kernel_records": trace.kernel_time("se_gram_kernel")[0]}
+    captured = set()
+    for i, s in enumerate(program):
+        if s.name == "serve.capture" or (s.parent is not None and s.parent in captured):
+            captured.add(i)
+    inside = [(i, s) for i, s in enumerate(program) if lo <= s.start_ns / 1e9 <= hi]
+    spans = sum(1 for i, s in inside if s.name == "se_gram.launch" and i not in captured)
+    replays = [s for _, s in inside if s.name == "serve.replay"]
+    replayed = sum((s.attrs or {}).get("launches", 0) for s in replays)
+    return {"launch_spans": spans, "replay_spans": len(replays),
+            "replayed_launches": replayed, "launches": spans + replayed,
+            "kernel_records": trace.kernel_time("se_gram_kernel")[0]}
 
 
 def gc_during(program, bench_spans):
@@ -248,7 +263,21 @@ def write_spans(path, program, bench_spans) -> None:
                                 "parent": None, "request": req}) + "\n")
 
 
+def engagement(before: dict) -> dict:
+    """``serve.graph_counts`` since ``before`` and the replays' share of
+    the calls the handles' caches admitted."""
+    from gaussianprocessnode_tpu_torch import serve
+
+    out = {k: v - before.get(k, 0) for k, v in serve.graph_counts.items()}
+    calls = out["replays"] + out["eager"]
+    out["replay_share"] = out["replays"] / calls if calls else None
+    return out
+
+
 def report(cell, seed, seconds, **run_cell_args) -> dict:
+    from gaussianprocessnode_tpu_torch import serve
+
+    counts = dict(serve.graph_counts)
     result, program, trace, bench_spans = traced_run(cell, seed, seconds, **run_cell_args)
     write_spans(OUT / f"spans-{cell}-{seed}.jsonl", program, bench_spans)
     window_ns = (int(trace.window[0] * 1e9), int(trace.window[1] * 1e9))
@@ -258,6 +287,7 @@ def report(cell, seed, seconds, **run_cell_args) -> dict:
             "idle": labelled(trace, program),
             "launches": launches(trace, program),
             "gc": gc_during(program, bench_spans),
+            "graphs": engagement(counts),
             "spans": len(program)}
 
 

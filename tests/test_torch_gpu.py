@@ -871,3 +871,119 @@ def test_entry_float32_kernel_matches_float64_plain_on_card():
     theta, Xu, X, mu = args64
     scale, limit = means_bound(Kernel("se", transform="softplus"), theta, Xu, mu, X)
     assert float(((m32.double() - m64).abs() / scale).max()) <= limit
+
+
+# the serving handles' CUDA graphs (serve.GraphCache) at the benchmark
+# cells' shapes: kin40k's regressor (600 × 262,144 × 8) and banana's
+# classifier (500 × 262,144 × 2)
+GRAPH_CELLS = {"kin40k": ("regressor", 600, 8), "banana": ("classifier", 500, 2)}
+CELL_ROWS = 262_144
+
+
+def _cell_handle(cell, seed=0):
+    """A handle at the cell's widths with seeded state and three request
+    batches of the cell's size; (handle, its call, batches)."""
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
+
+    head, M, D = GRAPH_CELLS[cell]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Xu = torch.randn((M, D), generator=g, device="cuda")
+    theta = torch.full((D + 1,), 0.8, device="cuda")
+    mu_v = torch.randn(M, generator=g, device="cuda") / M**0.5
+    w = torch.tensor(1.5, dtype=torch.float64, device="cuda")
+    kernel = Kernel("se", transform="softplus", use_kernel=True)
+    X = torch.randn((3, CELL_ROWS, D), generator=g, device="cuda")
+    if head == "classifier":
+        h = serve.SGPClassifier(kernel, theta, Xu, mu_v, w)
+        return h, h.probabilities, X
+    h = serve.SGPRegressor(kernel, theta, Xu, mu_v, w)
+    return h, h, X
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _eager(h, fn, X):
+    """The answer of a fresh handle's first call: eager."""
+    import dataclasses
+
+    fresh = dataclasses.replace(h)
+    return (fresh.probabilities if fn is not h else fresh)(X)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", sorted(GRAPH_CELLS))
+def test_replayed_handle_calls_equal_eager_calls_at_the_cells_shapes_on_card(cell):
+    """A key's first call is eager, its second captures, later calls
+    replay; every replay is bit-equal to an eager call on the same batch,
+    adds one Gram launch, and returns memory of its own."""
+    _need_card()
+    h, fn, X = _cell_handle(cell)
+    counts = dict(serve.graph_counts)
+    launches = sg.se_gram_cuda.launches
+    first = fn(X[0])
+    captured = fn(X[1])
+    assert sg.se_gram_cuda.launches == launches + 2
+    (graph,) = h._graphs.graphs.values()
+    assert graph.launches == 1
+    replays = []
+    for i in (0, 1, 0, 2):
+        before = sg.se_gram_cuda.launches
+        replays.append(fn(X[i]))
+        assert sg.se_gram_cuda.launches == before + 1
+    delta = {k: serve.graph_counts[k] - counts[k] for k in counts}
+    assert delta == {"captures": 1, "replays": 5, "eager": 1, "fallbacks": 0}
+    eager = [first, _eager(h, fn, X[1]), _eager(h, fn, X[2])]
+    for out, want in zip([captured] + replays, [eager[1], eager[0], eager[1], eager[0],
+                                                eager[2]]):
+        assert all(torch.equal(a, b) for a, b in zip(_outs(out), _outs(want)))
+    ptrs = [o.data_ptr() for out in replays for o in _outs(out)]
+    ptrs += [o.data_ptr() for o in _outs(graph.out)] + [graph.x.data_ptr()]
+    assert len(set(ptrs)) == len(ptrs)
+    # a replay's answer is the caller's: writing to it changes no later one
+    _outs(replays[0])[0].fill_(7.0)
+    assert torch.equal(_outs(fn(X[0]))[0], _outs(eager[0])[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", sorted(GRAPH_CELLS))
+def test_serve_fused_rows_equal_the_graphed_handle_at_the_cells_shapes_on_card(cell):
+    _need_card()
+    h, fn, X = _cell_handle(cell, seed=1)
+    launches = sg.se_gram_cuda.launches
+    fused = serve.serve_fused(h, X)
+    assert sg.se_gram_cuda.launches == launches + 3
+    assert len(h._graphs.graphs) == 1
+    rows = list(zip(*fused)) if isinstance(fused, tuple) else list(fused)
+    for i, row in enumerate(rows):
+        assert all(torch.equal(a, b) for a, b in zip(_outs(row), _outs(fn(X[i]))))
+        assert all(torch.equal(a, b) for a, b in zip(_outs(row), _outs(_eager(h, fn, X[i]))))
+
+
+@pytest.mark.gpu
+def test_a_capture_that_syncs_falls_back_and_leaves_the_stream_usable_on_card():
+    """A call that reads a device value on the host cannot be captured: its
+    key stays eager (counted once), its answers are right, and the stream
+    then captures and replays a handle call as before."""
+    _need_card()
+    cache = serve.GraphCache()
+    X = torch.randn(1000, 3, device="cuda")
+
+    def syncs(x):
+        return x * float(x.abs().max())
+
+    counts = dict(serve.graph_counts)
+    with torch.no_grad():
+        outs = [cache(syncs, syncs, X) for _ in range(4)]
+    delta = {k: serve.graph_counts[k] - counts[k] for k in counts}
+    assert delta == {"captures": 0, "replays": 0, "eager": 4, "fallbacks": 1}
+    assert not cache.graphs and not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize()
+    want = X * float(X.abs().max())
+    assert all(torch.equal(o, want) for o in outs)
+    h, fn, Xb = _cell_handle("banana", seed=2)
+    answers = [fn(Xb[0]) for _ in range(3)]
+    assert len(h._graphs.graphs) == 1
+    assert all(torch.equal(a, answers[0]) for a in answers)
+    assert torch.equal(answers[2], _eager(h, fn, Xb[0]))

@@ -336,7 +336,44 @@ def test_idle_gaps_go_to_the_innermost_span_and_launches_are_counted():
     assert r["by_innermost_s"] == pytest.approx({
         "no span": 0.009, "serve.call": 0.0005, "se_gram.dispatch": 0.0045,
         "se_gram.launch": 0.001, "serve.matvec": 0.0015})
-    assert serve_spans.launches(trace, scaled) == {"launch_spans": 1, "kernel_records": 1}
+    assert serve_spans.launches(trace, scaled) == {
+        "launch_spans": 1, "replay_spans": 0, "replayed_launches": 0, "launches": 1,
+        "kernel_records": 1}
+
+
+def test_replayed_calls_count_their_captured_launches_and_a_capture_none():
+    """In the sub-window [1, 10] s: an eager call's launch span, a capture
+    (its launch queued nothing) and two replays whose graph holds one Gram;
+    a replay after the sub-window is left out."""
+    from portbench.trace import Trace
+
+    def span(name, t, parent=None, attrs=None):
+        s = Span(name, int(t * 1e9), parent, 0, attrs)
+        s.end_ns = s.start_ns + 1000
+        return s
+
+    program = [span("serve.predict", 2), span("se_gram.launch", 2, 0),
+               span("serve.predict", 3), span("serve.capture", 3, 2),
+               span("se_gram.dispatch", 3, 3), span("se_gram.launch", 3, 4),
+               span("serve.replay", 3.5, 2, {"launches": 1}),
+               span("serve.predict", 4), span("serve.replay", 4, 7, {"launches": 1}),
+               span("serve.replay", 11, None, {"launches": 1})]
+    trace = Trace((1.0, 10.0), [("se_gram_kernel", t, t + 0.1) for t in (2, 3.5, 4)], [])
+    assert serve_spans.launches(trace, program) == {
+        "launch_spans": 1, "replay_spans": 2, "replayed_launches": 2, "launches": 3,
+        "kernel_records": 3}
+
+
+def test_engagement_reads_the_graph_counters_since_a_start():
+    before = dict(serve.graph_counts)
+    for k, n in (("captures", 1), ("replays", 9), ("eager", 1)):
+        serve.graph_counts[k] += n
+    try:
+        r = serve_spans.engagement(before)
+    finally:
+        serve.graph_counts.update(before)
+    assert r == {"captures": 1, "replays": 9, "eager": 1, "fallbacks": 0, "replay_share": 0.9}
+    assert serve_spans.engagement(serve.graph_counts)["replay_share"] is None
 
 
 def test_gc_during_the_window_and_the_spans_file(tmp_path):
