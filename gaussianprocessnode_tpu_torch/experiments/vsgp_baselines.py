@@ -55,6 +55,7 @@ from ..infer.svgp import (collapsed_opt_init, collapsed_predict, collapsed_step,
 from ..nodes.probit import ndtr
 from ..ops.kernels import Kernel, softplus
 from ..ops.se_gram import _kernel_fn, se_gram_cuda
+from ..serve import SVGPRegressor
 from ..utils.datasets import (toy_classification, toy_classification_reference, toy_sinc,
                               toy_sinc_reference)
 from ..utils.metrics import error_rate, num_error, smse
@@ -190,7 +191,8 @@ def run_kin40k_collapsed(steps: int = 400, eval_every: int = 25, learning_rate: 
 def run_kin40k(epochs: int = 2200, m_inducing: int = 600, batch: int = 500, seed: int = 1,
                data: str = "synthetic", device="cuda") -> dict:
     """The uncollapsed minibatch SVGP (fixed noise 0.01, AdaMax 0.002), in
-    float64 as the JAX runner."""
+    float64 as the JAX runner; the test rows are served through
+    ``serve.SVGPRegressor`` built from the trained parameters."""
     dev, dtype = torch.device(device), torch.float64
     ds, theta0, Xu, Xb, yb = _kin40k(data, seed, m_inducing, 10_000, 30_000, batch, dev,
                                      dtype)
@@ -202,8 +204,7 @@ def run_kin40k(epochs: int = 2200, m_inducing: int = 600, batch: int = 500, seed
     synchronize(dev)
     train_s = time.perf_counter() - t0
     X_test = torch.as_tensor(ds.x_test, dtype=dtype, device=dev)
-    with torch.no_grad():
-        mean, _ = svgp_predict(KERNEL, params, Xu, X_test)
+    mean, _ = SVGPRegressor.from_params(KERNEL, params, Xu, device=dev)(X_test)
     return {"runner": "kin40k", "value": train_s, "unit": "s", "epochs": epochs,
             "smse": float(smse(torch.as_tensor(ds.y_test), mean.cpu().double())),
             "dtype": "float64", "device": _device(dev), "data": data, "seed": seed,

@@ -34,9 +34,11 @@ from ..config import JITTER_KUU
 from ..ops.kernels import softplus
 from ..ops.linalg import chol_lower, solve_psd, tri_solve_lower, tri_solve_upper
 from ..ops.quadrature import gh_nodes
+from ..utils import tracing
 from .minibatch import AdaMaxChain, _leaves, _like
 
 __all__ = ["SVGPParams", "init_svgp", "elbo_gaussian", "elbo_bernoulli", "svgp_predict",
+           "svgp_factors", "svgp_predict_batch",
            "collapsed_neg_elbo", "vsgp_optimizer", "collapsed_opt_init", "collapsed_step",
            "fit_svgp_collapsed", "fit_svgp_collapsed_resumable", "collapsed_predict",
            "fit_svgp"]
@@ -79,28 +81,52 @@ def _A_tril(A_raw, raw: bool = False):
     return torch.tril(A_raw, -1) + torch.diag(softplus(torch.diagonal(A_raw)))
 
 
+def svgp_factors(kernel, params: SVGPParams, Xu, jitter: float = JITTER_KUU,
+                 raw_tril: bool = False):
+    """The once-per-model part of the predictive: (Lu, Ã), the lower
+    Cholesky factor of Kuu = K(Xu, Xu) + jitter·I and the variational
+    factor."""
+    Lu = chol_lower(kernel.kuu(params.theta, Xu, jitter=jitter))
+    return Lu, _A_tril(params.A_raw, raw_tril)
+
+
+def svgp_predict_batch(kernel, theta, Xu, X, Lu, m_white, A):
+    """The whitened predictive q(f) = N(mean, var) at the rows of X, from
+    the factors of :func:`svgp_factors`: Y = Lu⁻¹K(Xu, X) (a triangular
+    solve, span ``svgp.solve``), mean = Yᵀm̃, and
+    var = k(x, x) − ‖y‖² + ‖Ãᵀy‖² per column (span ``svgp.var``), floored at
+    1e-12 by ``torch.maximum``, which splits the gradient at a tie as
+    ``jnp.maximum`` does. The floor is made on the device, so a CUDA graph
+    can capture the call."""
+    Kux = kernel(theta, Xu, X)  # (M, N)
+    with tracing.span("svgp.solve"):
+        Akx = tri_solve_lower(Lu, Kux)  # Lu⁻¹ Kux
+    kxx = kernel.diag(theta, X)
+    mean = Akx.T @ m_white
+    with tracing.span("svgp.var"):
+        SAk = A.T @ Akx
+        var = kxx - torch.sum(Akx * Akx, dim=0) + torch.sum(SAk * SAk, dim=0)
+        return mean, torch.maximum(var, var.new_full((), 1e-12))
+
+
 def _marginal_f(kernel, params: SVGPParams, Xu, X, whitened: bool = True,
                 jitter: float = JITTER_KUU, raw_tril: bool = False):
-    """Predictive q(f) = N(mean, var) at inputs X. ``whitened=False`` takes
-    the reference's centered q(u) = N(m, AAᵀ) in u-space (Regression_VSGP
-    cell 7). The variance is floored at 1e-12 by ``torch.maximum``, which
-    splits the gradient at a tie as ``jnp.maximum`` does."""
-    Kuu = kernel.kuu(params.theta, Xu, jitter=jitter)
-    Lu = chol_lower(Kuu)
+    """Predictive q(f) = N(mean, var) at inputs X: :func:`svgp_factors`,
+    then :func:`svgp_predict_batch`. ``whitened=False`` takes the
+    reference's centered q(u) = N(m, AAᵀ) in u-space (Regression_VSGP
+    cell 7)."""
+    Lu, A = svgp_factors(kernel, params, Xu, jitter, raw_tril)
+    if whitened:
+        return svgp_predict_batch(kernel, params.theta, Xu, X, Lu, params.m_white, A)
     Kux = kernel(params.theta, Xu, X)  # (M, N)
     Akx = tri_solve_lower(Lu, Kux)  # Lu⁻¹ Kux
-    A = _A_tril(params.A_raw, raw_tril)
     kxx = kernel.diag(params.theta, X)
-    if whitened:
-        mean = Akx.T @ params.m_white
-        SAk = A.T @ Akx
-    else:
-        # B = Kuu⁻¹ Kux = Lu⁻ᵀ Akx;  mean = Bᵀ m;  cov term = ‖Aᵀ B‖² per column
-        B = tri_solve_upper(Lu.mT, Akx)
-        mean = B.T @ params.m_white
-        SAk = A.T @ B
+    # B = Kuu⁻¹ Kux = Lu⁻ᵀ Akx;  mean = Bᵀ m;  cov term = ‖Aᵀ B‖² per column
+    B = tri_solve_upper(Lu.mT, Akx)
+    mean = B.T @ params.m_white
+    SAk = A.T @ B
     var = kxx - torch.sum(Akx * Akx, dim=0) + torch.sum(SAk * SAk, dim=0)
-    return mean, torch.maximum(var, torch.tensor(1e-12, dtype=var.dtype, device=var.device))
+    return mean, torch.maximum(var, var.new_full((), 1e-12))
 
 
 def _logdet_tril(A):

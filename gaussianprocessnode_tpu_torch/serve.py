@@ -4,18 +4,22 @@ Counterpart of ``gaussianprocessnode_tpu/serve.py``: the regression and the
 probit classification handles, and the GPSSM's streaming filter. The trained state is packaged once (μ_v
 recovered from the trainer's natural parameters at build time,
 matmul-only) and each request batch costs one SE Gram of K(Xu, x*) plus one
-mat-vec, and for a classifier the Φ epilogue. With
+mat-vec, and for a classifier the Φ epilogue. Beyond the JAX package's
+serving API, ``SVGPRegressor`` serves the whitened SVGP baseline with its
+predictive variance: Kuu's factor once, then per batch the Gram, a
+triangular solve against it and a product with the q(u) factor. With
 ``Kernel(use_kernel=True)`` the Gram is the hand-written CUDA kernel of
 ``ops/se_gram.py``. The GPSSM filter (``GPSSMFilter``) costs one Gram of
 the inducing inputs against the 2·D cubature points per observation.
 ``shard_requests`` gives each rank of a data-parallel server its slice of
 a request batch; the state is replicated, so no collective is needed.
 
-On the card each regression or classification handle holds its calls as
-CUDA graphs (:class:`GraphCache`): a call shape's second call captures the
-whole call (softplus θ, the Gram, Kᵀμ_v, the fill, Φ) and every later call
-replays it, so the host no longer paces the device. The kernels, their
-order and the answers are those of an eager call.
+On the card each regression, classification or SVGP handle holds its
+calls as CUDA graphs (:class:`GraphCache`): a call shape's second call
+captures the whole call (softplus θ, the Gram, Kᵀμ_v, the fill, Φ; the
+SVGP handle's solve and product) and every later call replays it, so the
+host no longer paces the device. The kernels, their order and the answers
+are those of an eager call.
 """
 
 import time
@@ -25,17 +29,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .config import JITTER_KUU
 from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from .infer.batch_vmp import predict_out, predict_probit
 from .infer.chain_smoother import filter_frozen, filter_stream
+from .infer.svgp import SVGPParams, svgp_factors, svgp_predict_batch
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
 from .ops.se_gram import se_gram_cuda
 from .parallel.comm import rank_slice
 from .utils import tracing
 from .utils.profiling import synchronize
 
-__all__ = ["SGPRegressor", "SGPClassifier", "GPSSMFilter", "GraphCache", "graph_counts",
-           "serve_fused", "throughput", "throughput_fused", "shard_requests"]
+__all__ = ["SGPRegressor", "SGPClassifier", "SVGPRegressor", "GPSSMFilter", "GraphCache",
+           "graph_counts", "serve_fused", "throughput", "throughput_fused", "shard_requests"]
 
 # graphs a handle keeps: each holds a private memory pool the size of its
 # call's Gram (629 MB at 600 × 262,144)
@@ -113,9 +119,9 @@ def _capturable(X) -> bool:
 
 class GraphCache:
     """A handle's calls held as CUDA graphs, keyed by what a call can
-    observe: the function it resolved (``predict_out`` or
-    ``predict_probit``, looked up at call time) and the input's shape,
-    dtype and device. A key's first call runs eagerly (the warm-up that
+    observe: the function it resolved (``predict_out``, ``predict_probit``
+    or ``svgp_predict_batch``, looked up at call time) and the input's
+    shape, dtype and device. A key's first call runs eagerly (the warm-up that
     creates the libraries' handles and workspaces); its second captures
     (``capture(call, X)``, a :class:`_CallGraph`) and answers by the
     replay; later calls replay. At most ``GRAPH_SLOTS`` graphs are kept,
@@ -164,16 +170,16 @@ class GraphCache:
             return graph(X)
 
 
-def _served(handle, out, X_test):
-    """``out(kernel, θ, Xu, X, μ_v, w̄)`` of a regression or classification
-    handle on ``X_test`` in the handle's dtype and device, through its
-    graph cache, gradients off. The caller passes ``out`` as it resolves
-    it at call time, so a function patched into this module takes effect
-    on the next call."""
+def _served(handle, out, X_test, *state):
+    """``out(kernel, θ, Xu, X, *state)`` of a serving handle on ``X_test``
+    in the handle's dtype and device, through its graph cache, gradients
+    off (``state``: μ_v and w̄ of a UniSGP handle). The caller passes
+    ``out`` as it resolves it at call time, so a function patched into this
+    module takes effect on the next call."""
     X = torch.as_tensor(X_test, dtype=handle.Xu.dtype, device=handle.Xu.device)
     with torch.no_grad():
         return handle._graphs(out, lambda x: out(handle.kernel, handle.theta, handle.Xu, x,
-                                                 handle.mu_v, handle.w_mean), X)
+                                                 *state), X)
 
 
 @dataclass(frozen=True)
@@ -213,7 +219,7 @@ class SGPRegressor:
 
     @tracing.traced("serve.predict")
     def __call__(self, X_test):
-        return _served(self, predict_out, X_test)
+        return _served(self, predict_out, X_test, self.mu_v, self.w_mean)
 
 
 @dataclass(frozen=True)
@@ -251,10 +257,54 @@ class SGPClassifier:
 
     @tracing.traced("serve.predict")
     def probabilities(self, X_test):
-        return _served(self, predict_probit, X_test)
+        return _served(self, predict_probit, X_test, self.mu_v, self.w_mean)
 
     def __call__(self, X_test, threshold: float = 0.5):
         return (self.probabilities(X_test) >= threshold).to(self.Xu.dtype)
+
+
+@dataclass(frozen=True)
+class SVGPRegressor:
+    """Frozen serving handle for a whitened SVGP (``infer/svgp.py``; the
+    reference's ApproximateGPs.jl baseline, Regression_VSGP.ipynb cells
+    15-19): q(u) = N(Lu·m̃, Lu·ÃÃᵀ·Luᵀ), and a call returns the predictive
+    q(f) = N(mean, var) of ``svgp_predict`` at its rows: Y = Lu⁻¹K(Xu, x*),
+    mean = Yᵀm̃, var = k(x*, x*) − ‖y‖² + ‖Ãᵀy‖², floored at 1e-12.
+
+    ``from_params`` factors Kuu and forms Ã once, in float64; a call costs
+    the Gram, one triangular solve against it and one product with Ãᵀ, held
+    as a CUDA graph on the card as the UniSGP handles' calls are
+    (:class:`GraphCache`)."""
+
+    kernel: object
+    theta: torch.Tensor
+    Xu: torch.Tensor
+    Lu: torch.Tensor
+    m_white: torch.Tensor
+    A: torch.Tensor
+    _graphs: GraphCache = field(default_factory=GraphCache, init=False, repr=False,
+                                compare=False)
+
+    @classmethod
+    @tracing.traced("serve.from_svgp")
+    def from_params(cls, kernel, params: SVGPParams, Xu, dtype=None, device="cuda",
+                    jitter: float = JITTER_KUU, raw_tril: bool = False):
+        """Form Lu (Kuu at ``jitter``) and Ã from ``params`` in float64 on
+        ``device``, as ``svgp_predict`` does with the same ``jitter`` and
+        ``raw_tril``, then hold θ, Xu, Lu, m̃ and Ã in ``dtype`` (Xu's
+        dtype by default)."""
+        dev, f64 = torch.device(device), torch.float64
+        Xu = torch.as_tensor(Xu, device=dev)
+        dtype = dtype or Xu.dtype
+        p64 = SVGPParams(*(torch.as_tensor(p, device=dev).to(f64) for p in params))
+        with torch.no_grad():
+            Lu, A = svgp_factors(kernel, p64, Xu.to(f64), jitter, raw_tril)
+        return cls(kernel, p64.theta.to(dtype), Xu.to(dtype), Lu.to(dtype),
+                   p64.m_white.to(dtype), A.to(dtype))
+
+    @tracing.traced("serve.predict")
+    def __call__(self, X_test):
+        return _served(self, svgp_predict_batch, X_test, self.Lu, self.m_white, self.A)
 
 
 @dataclass(frozen=True)
@@ -297,9 +347,10 @@ class GPSSMFilter:
 
 def serve_fused(predictor, X_batches):
     """Serve a (R, B, Din) stack of request batches, dispatched on the
-    handle's type: for an :class:`SGPRegressor`, ``(means, vars)``, each
-    (R, B), row i equal to ``predictor(X_batches[i])``; for an
-    :class:`SGPClassifier`, the (R, B) probabilities, row i equal to
+    handle's type: for an :class:`SGPRegressor` or an
+    :class:`SVGPRegressor`, ``(means, vars)``, each (R, B), row i equal to
+    ``predictor(X_batches[i])``; for an :class:`SGPClassifier`, the (R, B)
+    probabilities, row i equal to
     ``predictor.probabilities(X_batches[i])``. The batches are queued back
     to back on the device with no host sync between them (the counterpart
     of the JAX package's one scanned program)."""

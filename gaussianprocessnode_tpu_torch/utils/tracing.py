@@ -37,6 +37,9 @@ The program's spans (names as the benchmark's layers read them):
 - ``serve.matvec`` and ``serve.fill``: Kᵀμ_v and the 1/w̄ fill of
   ``infer.batch_vmp.predict_out``;
 - ``probit.phi``: Φ in ``infer.batch_vmp.predict_probit``;
+- ``svgp.solve`` and ``svgp.var``: the triangular solve Lu⁻¹K and the
+  variance (the product with Ãᵀ, the sums of squares, the floor) of
+  ``infer.svgp.svgp_predict_batch``, an SVGP handle's call;
 - ``serve.capture``: a handle call captured as a CUDA graph
   (``serve.GraphCache``; the spans above, inside it, queue work that runs
   only in the replays);
@@ -44,6 +47,8 @@ The program's spans (names as the benchmark's layers read them):
   copy, replay, output clones; attribute ``launches``, the Gram kernels
   the replay runs, which record no ``se_gram.launch``);
 - ``serve.from_natural``: μ_v's recovery when a handle is built;
+- ``serve.from_svgp``: an SVGP handle's set-up (Kuu's factor and Ã in
+  float64);
 - ``ops.load_library``: building or loading the kernel library
   (attribute ``built``);
 - ``python.gc``: a garbage collection.

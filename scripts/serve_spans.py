@@ -21,9 +21,10 @@ profiler's. It writes both kinds, with ``parent`` and ``request``, to
   span), ``gram_dispatch_us`` (``se_gram.dispatch``), ``params_fill_us``
   (``kernel.params`` + ``serve.fill``) and ``self_us`` (each span name's
   self time);
-- ``setup``: ``program_setup_s`` (``ops.load_library`` + ``serve.from_natural``),
-  each of them, whether the library was built, the warm-up calls, and the
-  set-up's seconds from this script's start to the window's first call;
+- ``setup``: ``program_setup_s`` (``ops.load_library`` +
+  ``serve.from_natural`` + ``serve.from_svgp``), each of them, whether the
+  library was built, the warm-up calls, and the set-up's seconds from this
+  script's start to the window's first call;
 - ``idle``: the sub-window's idle gaps put down to the span of either kind
   that overlaps each most (the shorter on a tie, ``portbench.trace.label``):
   the largest gaps, every gap over 1 ms with the shortest spans inside it,
@@ -35,7 +36,10 @@ profiler's. It writes both kinds, with ``parent`` and ``request``, to
 - ``gc``: the collections during the window, by generation;
 - ``graphs``: the serving handles' graph engagement over the run, set-up
   included (``serve.graph_counts``: captures, replays, eager calls,
-  fallbacks) and the replays' share of the calls.
+  fallbacks) and the replays' share of the calls;
+- ``svgp_stages``: for an SVGP cell, the self time of ``svgp.solve`` and
+  ``svgp.var`` in the calls that ran the handle's Python (a replay runs
+  none): the eager warm-up call and the capture, each apart.
 """
 
 import time
@@ -55,7 +59,8 @@ from gaussianprocessnode_tpu_torch.utils import tracing  # noqa: E402
 from portbench import faults, manifest as mf  # noqa: E402
 from portbench import trace as bench_trace  # noqa: E402
 
-SETUP_SPANS = ("ops.load_library", "serve.from_natural")
+SETUP_SPANS = ("ops.load_library", "serve.from_natural", "serve.from_svgp")
+SVGP_STAGES = ("svgp.solve", "svgp.var")
 OUT = ROOT / "portbench_out"
 
 
@@ -207,6 +212,15 @@ def labelled(trace, program, n: int = 10):
             "idle_s": sum(by_label.values()), "window_s": trace.window_s}
 
 
+def _captured(program) -> set:
+    """Indices of the ``serve.capture`` spans and of the spans inside them."""
+    captured = set()
+    for i, s in enumerate(program):
+        if s.name == "serve.capture" or (s.parent is not None and s.parent in captured):
+            captured.add(i)
+    return captured
+
+
 def launches(trace, program):
     """The Gram kernels the host queued in the sub-window against the
     trace's ``se_gram_kernel`` records: ``se_gram.launch`` spans of eager
@@ -214,10 +228,7 @@ def launches(trace, program):
     ``serve.replay`` span the launches its graph's capture made (its
     ``launches`` attribute); ``launches`` is their sum."""
     lo, hi = trace.window
-    captured = set()
-    for i, s in enumerate(program):
-        if s.name == "serve.capture" or (s.parent is not None and s.parent in captured):
-            captured.add(i)
+    captured = _captured(program)
     inside = [(i, s) for i, s in enumerate(program) if lo <= s.start_ns / 1e9 <= hi]
     spans = sum(1 for i, s in inside if s.name == "se_gram.launch" and i not in captured)
     replays = [s for _, s in inside if s.name == "serve.replay"]
@@ -263,6 +274,26 @@ def write_spans(path, program, bench_spans) -> None:
                                 "parent": None, "request": req}) + "\n")
 
 
+def svgp_stages(program):
+    """Self µs of each ``SVGP_STAGES`` span, by kind of call: ``eager`` (a
+    call that ran its work) and ``capture`` (a call captured as a graph,
+    whose spans only queue the graph's work): {kind: {name: {"n", "self_us"
+    (mean)}}}; {} where no call recorded them."""
+    selfs = tracing.self_ns(program)
+    captured = _captured(program)
+    out = {}
+    for i, (s, si) in enumerate(zip(program, selfs)):
+        if s.name in SVGP_STAGES and s.end_ns is not None:
+            kind = out.setdefault("capture" if i in captured else "eager", {})
+            d = kind.setdefault(s.name, {"n": 0, "self_us": 0.0})
+            d["n"] += 1
+            d["self_us"] += _us(si)
+    for kind in out.values():
+        for d in kind.values():
+            d["self_us"] /= d["n"]
+    return out
+
+
 def engagement(before: dict) -> dict:
     """``serve.graph_counts`` since ``before`` and the replays' share of
     the calls the handles' caches admitted."""
@@ -288,6 +319,7 @@ def report(cell, seed, seconds, **run_cell_args) -> dict:
             "launches": launches(trace, program),
             "gc": gc_during(program, bench_spans),
             "graphs": engagement(counts),
+            "svgp_stages": svgp_stages(program),
             "spans": len(program)}
 
 

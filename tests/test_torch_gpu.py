@@ -1,6 +1,6 @@
 """The port's CUDA kernel, its route, and the serving and training paths
-(kin40k regression, banana classification, the toy workloads, the VSGP
-collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
+(kin40k regression, banana classification, the SVGP handle, the toy
+workloads, the VSGP collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
 its streaming filter and the associative scan, the GPLVM sweep, the
 data-parallel kin40k trainer over NCCL at world size 1), the Ozaki f64
 product's int8 groups and the flagship forward step (``entry.py``) on a
@@ -987,3 +987,56 @@ def test_a_capture_that_syncs_falls_back_and_leaves_the_stream_usable_on_card():
     assert len(h._graphs.graphs) == 1
     assert all(torch.equal(a, answers[0]) for a in answers)
     assert torch.equal(answers[2], _eager(h, fn, Xb[0]))
+
+
+def _svgp_cell_handle(seed=0):
+    """An SVGP handle at the kin40k_svgp cell's widths (M = 512, D = 8; the
+    kin40k θ) with a seeded whitened mean and factor, and three request
+    batches of the cell's size."""
+    import math
+
+    from gaussianprocessnode_tpu_torch.infer.svgp import SVGPParams
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, invsoftplus
+
+    f64, M, D = torch.float64, 512, 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sp = torch.tensor([0.1764, 2.994, 2.905, 1.74, 2.27, 2.011, 1.582, 1.534, 2.052],
+                      dtype=f64, device="cuda")
+    A = 0.05 * torch.tril(torch.randn((M, M), generator=g, dtype=f64, device="cuda"), -1)
+    A = A + torch.diag(0.05 + torch.rand(M, generator=g, dtype=f64, device="cuda"))
+    params = SVGPParams(invsoftplus(sp), torch.randn(M, generator=g, dtype=f64, device="cuda"),
+                        A, torch.tensor(math.log(0.01), dtype=f64, device="cuda"))
+    Xu = torch.randn((M, D), generator=g, device="cuda")
+    h = serve.SVGPRegressor.from_params(Kernel("se", transform="softplus", use_kernel=True),
+                                        params, Xu, dtype=torch.float32, device="cuda",
+                                        raw_tril=True)
+    return h, torch.randn((3, CELL_ROWS, D), generator=g, device="cuda")
+
+
+@pytest.mark.gpu
+def test_svgp_handle_replays_equal_eager_calls_at_the_cells_shape_on_card():
+    """The SVGP handle's call (the Gram, the triangular solve, the product
+    with Ãᵀ, the floor made on the device) is captured once, with no
+    fallback; every replay is bit-equal to an eager call on the same batch
+    and adds one Gram launch; ``serve_fused`` rows are the handle's."""
+    import dataclasses
+
+    _need_card()
+    h, X = _svgp_cell_handle()
+    counts = dict(serve.graph_counts)
+    launches = sg.se_gram_cuda.launches
+    first = h(X[0])
+    captured = h(X[1])
+    replays = [h(X[i]) for i in (0, 2, 1)]
+    assert sg.se_gram_cuda.launches == launches + 5
+    delta = {k: serve.graph_counts[k] - counts[k] for k in counts}
+    assert delta == {"captures": 1, "replays": 4, "eager": 1, "fallbacks": 0}
+    (graph,) = h._graphs.graphs.values()
+    assert graph.launches == 1
+    eager = [first] + [dataclasses.replace(h)(X[i]) for i in (1, 2)]
+    for out, want in zip([captured] + replays, [eager[1], eager[0], eager[2], eager[1]]):
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert float(first[1].min()) >= 1e-12
+    means, vars_ = serve.serve_fused(h, X)
+    for i in range(3):
+        assert torch.equal(means[i], eager[i][0]) and torch.equal(vars_[i], eager[i][1])
