@@ -74,7 +74,11 @@ width (kin40k fast in float32 and float64 and banana fast for 100 epochs,
 the collapsed VSGP for its 400 steps) and holds each figure and θ to the
 JAX package's on the same data (``scripts/headline_jax_figures.json``,
 written on the CPU by ``scripts/headline_jax_parity.py``) within the bounds
-that the JAX package's rounding twins set. It prints
+that the JAX package's rounding twins set; and, after them, holds the SVGP
+variance kernel (``ops/svgp_var.py``) at the kin40k SVGP serving shape
+(512 × 262,144 × 8) to its plain version in float64, with TF32 in the
+plain version's products as the negative control, and times it beside its
+bound and the plain (cuBLAS) route. It prints
 
 - a progress line, with elapsed seconds, before and after every phase;
 - the card's name and power limit as nvidia-smi reports them;
@@ -100,7 +104,7 @@ that the JAX package's rounding twins set. It prints
   package's with their bounds, and its launches, with the card;
 - one JSON line {"kernels": [...]} with each kernel's launches on every
   path (``launches_by_path``), its disagreement with the plain version and
-  those times;
+  those times (the SE Gram, then the SVGP variance kernel);
 - as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
@@ -173,7 +177,7 @@ def gram_bound_ms(M: int, N: int, D: int) -> tuple[float, str, float, float]:
 
 
 def phase_device():
-    say("phase 1/17 device: start")
+    say("phase 1/18 device: start")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA card")
@@ -187,12 +191,12 @@ def phase_device():
     print(f"device: {name} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} python={sys.version.split()[0]}", flush=True)
     print(f"nvidia-smi: {card}", flush=True)
-    say("phase 1/17 device: done")
+    say("phase 1/18 device: done")
     return name, count, card
 
 
 def phase_build():
-    say("phase 2/17 build: start")
+    say("phase 2/18 build: start")
     from gaussianprocessnode_tpu_torch.ops import _build, se_gram
 
     se_gram._kernel_fn()
@@ -202,7 +206,7 @@ def phase_build():
     print(f"build: built={info['built']} seconds={info['seconds']:.2f} "
           f"flags={' '.join(_build.NVCC_FLAGS)}", flush=True)
     print(f"ptxas -v: {ptxas or '(no report)'}", flush=True)
-    say("phase 2/17 build: done")
+    say("phase 2/18 build: done")
 
 
 def _held_to_plain(label, Z, X, var, ls, K):
@@ -233,7 +237,7 @@ def phase_kernel(theta, theta_banana):
     and at every shape the main paths launch: kin40k's at its trained θ,
     banana's and the classifier's (M = 500, D = 2) at θ0 = softplus⁻¹(1)
     where training starts and at the trained banana θ."""
-    say("phase 3/17 kernel vs plain: start")
+    say("phase 3/18 kernel vs plain: start")
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import SE_GRAM_MAX_D, se_gram_cuda
 
@@ -309,12 +313,12 @@ def phase_kernel(theta, theta_banana):
     K2 = se_gram_cuda(Z, X2, var, ls)
     _held_to_plain("back to back, first (600x30000x8)", Z, X1, var, ls, K1)
     _held_to_plain("back to back, second (600x10000x8)", Z, X2, var, ls, K2)
-    say("phase 3/17 kernel vs plain: done")
+    say("phase 3/18 kernel vs plain: done")
     return results
 
 
 def phase_serve(seed, z):
-    say("phase 4/17 serving: start")
+    say("phase 4/18 serving: start")
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
     from gaussianprocessnode_tpu_torch.experiments import serving_bench
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -383,7 +387,7 @@ def phase_serve(seed, z):
     print(f"means vs float64 host reference ({n_small} requests): "
           f"max |d|/(|K|^T|mu|) = {rel64:.3e} (limit {lim:.3e})", flush=True)
     check(rel64 <= lim, "served means disagree with the float64 reference")
-    say("phase 4/17 serving: done")
+    say("phase 4/18 serving: done")
     return handle, X, launches
 
 
@@ -459,7 +463,7 @@ def phase_times(handle, X, card):
     Python loop between CUDA events (host cost included), ``fill_`` of an
     output of the same size (the store ceiling), and the plain version (a
     CUDA graph of 20 calls)."""
-    say("phase 5/17 times: start")
+    say("phase 5/18 times: start")
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
     from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
 
@@ -477,7 +481,7 @@ def phase_times(handle, X, card):
           f"Gram kernel {gram_ms:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device "
           f"time, CUDA graph), rest {batch_ms - gram_ms - mv_ms:.5f} ms; host time "
           f"to queue one batch {enqueue_ms:.5f} ms [{card}]", flush=True)
-    say("phase 5/17 times: done")
+    say("phase 5/18 times: done")
     return shapes, dict(pps=pps, batch_ms=batch_ms, matvec_ms=mv_ms,
                         enqueue_ms=enqueue_ms)
 
@@ -552,7 +556,7 @@ def phase_train(seed, card):
     (a step with a host sync could not be captured), and host time eager;
     and one eager epoch's device time by kernel group from a profiler
     trace."""
-    say("phase 6/17 training: start")
+    say("phase 6/18 training: start")
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.infer.minibatch import (FastCarry, fast_epoch_steps,
                                                                fast_optimizer,
@@ -655,7 +659,7 @@ def phase_train(seed, card):
     print(f"epoch: host {epoch_host:.2f} ms (mean of epochs 2-{EPOCHS}); device work "
           f"{busy:.2f} ms (20 steps + 1 refresh by graph) -> card idle "
           f"{1.0 - busy / epoch_host:.3f} of the epoch [{card}]", flush=True)
-    say("phase 6/17 training: done")
+    say("phase 6/18 training: done")
     return dict(launches_per_epoch=launches, launches=total, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, smse_3_epochs=score,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -732,7 +736,7 @@ def phase_banana(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 7/17 banana training: start")
+    say("phase 7/18 banana training: start")
     from gaussianprocessnode_tpu_torch.dists import gamma_mean
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as krunner
@@ -938,7 +942,7 @@ def phase_banana(seed, card):
     check(same_whole, "banana runner: chunked result differs from one uninterrupted call: "
           f"{ {k: (res[k], v) for k, v in whole.items()} }")
     check(same_given, "banana runner: given its own xu, the result differs")
-    say("phase 7/17 banana training: done")
+    say("phase 7/18 banana training: done")
     return dict(launches_per_epoch=launches, launches=fast_launches, epoch_host_ms=epoch_ms,
                 kernel_vs_plain=diffs, test_error_rate_4_epochs=err, w_bar_4_epochs=w_bar,
                 theta_step_device_ms=step_dev, theta_step_eager_ms=step_eager,
@@ -971,7 +975,7 @@ def phase_classifier(seed, card):
     held against the same handle's plain path on the card and against a
     float64 host reference on 256 requests; then the time per batch, the
     host's queue time and the Gram at 500×30000×2."""
-    say("phase 8/17 classifier serving: start")
+    say("phase 8/18 classifier serving: start")
     import dataclasses
 
     from gaussianprocessnode_tpu_torch import MvGaussianNat, convert, serve
@@ -1074,7 +1078,7 @@ def phase_classifier(seed, card):
           f"kernel {row['device_ms']:.5f} ms, mat-vec K^T mu {mv_ms:.5f} ms (device time, "
           f"CUDA graph); host time to queue one batch {enqueue_ms:.5f} ms [{card}]",
           flush=True)
-    say("phase 8/17 classifier serving: done")
+    say("phase 8/18 classifier serving: done")
     return dict(launches=launches, max_abs_dm_vs_plain_over_bound=m_excess,
                 negative_control_over_bound=off_excess,
                 max_abs_dp_vs_plain_over_tol=excess,
@@ -1139,7 +1143,7 @@ def phase_toy(card):
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
       float32, kernel against plain;
     - the toy Gram shapes timed as phase 5 times the others."""
-    say("phase 9/17 toy workloads: start")
+    say("phase 9/18 toy workloads: start")
     from gaussianprocessnode_tpu_torch.experiments import toy_classification as tcls
     from gaussianprocessnode_tpu_torch.experiments import toy_regression as treg
     from gaussianprocessnode_tpu_torch.infer.training import fit_classification, fit_regression
@@ -1280,7 +1284,7 @@ def phase_toy(card):
                                              dtype=torch.float32, device="cuda")
         one = torch.ones((), dtype=torch.float32, device="cuda")
         shapes.append(time_gram(Z, X, one, one.reshape(1), role, card))
-    say("phase 9/17 toy workloads: done")
+    say("phase 9/18 toy workloads: done")
     return dict(out, psi_point_gram_max_abs=psi_err, shapes=shapes,
                 launches=out["toy_regression"]["f32_launches"]
                 + out["toy_classification"]["f32_launches"])
@@ -1337,7 +1341,7 @@ def phase_vsgp(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 10/17 VSGP and FITC baselines: start")
+    say("phase 10/18 VSGP and FITC baselines: start")
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.infer.fitc import fit_sparse_gp, init_sparse_gp
     from gaussianprocessnode_tpu_torch.infer.svgp import (collapsed_opt_init,
@@ -1536,7 +1540,7 @@ def phase_vsgp(seed, card):
           and d_f["trace"] <= VSGP_RTOL["fitc_trace"], "FITC: kernel and plain disagree")
     out["fitc"] = dict(launches=fitc_launches, steps=FITC_STEPS, step_ms=fitc_ms,
                        kernel_vs_plain=d_f)
-    say("phase 10/17 VSGP and FITC baselines: done")
+    say("phase 10/18 VSGP and FITC baselines: done")
     return out
 
 
@@ -1598,7 +1602,7 @@ def phase_multi(seed, card):
       the card, held to the same calls on the host in this process;
     - the Gram at 48×1200×2 and 48×48×2 held to its plain version and
       timed."""
-    say("phase 11/17 MultiSGP node and M-step objective: start")
+    say("phase 11/18 MultiSGP node and M-step objective: start")
     from gaussianprocessnode_tpu_torch import dists as td
     from gaussianprocessnode_tpu_torch.nodes import multisgp as ms
     from gaussianprocessnode_tpu_torch.objectives import grad_multi, neg_log_backwardmess_multi
@@ -1731,7 +1735,7 @@ def phase_multi(seed, card):
         shapes.append(time_gram(Z, X, var, ls.contiguous(), role, card))
     se_gram_cuda.launches = before
     out.update(gram_max_abs=errs, shapes=shapes)
-    say("phase 11/17 MultiSGP node and M-step objective: done")
+    say("phase 11/18 MultiSGP node and M-step objective: done")
     return out
 
 
@@ -2030,7 +2034,7 @@ def phase_gpssm(seed, card):
     - a Jacobi sweep and a PIT sweep under ``set_sync_debug_mode("error")``;
       their device time (CUDA graph) and eager host time, and a filtered
       step's; the chain's Gram shapes held to the plain Gram and timed."""
-    say("phase 12/17 GPSSM family: start")
+    say("phase 12/18 GPSSM family: start")
     from gaussianprocessnode_tpu_torch.experiments import pendulum as runner
     from gaussianprocessnode_tpu_torch.infer import chain_smoother as tc
     from gaussianprocessnode_tpu_torch.infer import pit_gpssm as tp
@@ -2181,7 +2185,7 @@ def phase_gpssm(seed, card):
         "gpssm_pit_f32": L["pit"], "gpssm_control_f32": L["control"],
         "gpssm_filter_f32": L["filter"]}
     out["launches"] = (total + sum(L.values()))
-    say("phase 12/17 GPSSM family: done")
+    say("phase 12/18 GPSSM family: done")
     return out
 
 # the GPLVM runner's configuration (experiments/gplvm.py): N = 200 rows of
@@ -2406,7 +2410,7 @@ def phase_gplvm(seed, card):
       just before; the two GPLVM Gram shapes held to plain and timed;
     - each ``infer/model.py`` class's ``infer`` bit for bit against its
       direct call on the card."""
-    say("phase 13/17 GPLVM and the model front-end: start")
+    say("phase 13/18 GPLVM and the model front-end: start")
     from gaussianprocessnode_tpu_torch.experiments.gplvm import knn_accuracy
     from gaussianprocessnode_tpu_torch.infer.gplvm import gplvm_embed, gplvm_vmp
     from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
@@ -2521,7 +2525,7 @@ def phase_gplvm(seed, card):
     check(se_gram_cuda.launches == before, "the float64 front-end launched the float32 kernel")
     out["front_end_equal"] = same
     out["launches_by_path"] = {"gplvm_f32_sweep": l32}
-    say("phase 13/17 GPLVM and the model front-end: done")
+    say("phase 13/18 GPLVM and the model front-end: done")
     return out
 
 
@@ -2597,7 +2601,7 @@ def phase_legacy(card):
       the card and on the host;
     - a profiled sequential smoother call (T = 400) and a profiled
       colored-EM epoch at reduced depth (4 E-sweeps, 2 adjoint VJPs)."""
-    say("phase 14/17 legacy GP families: start")
+    say("phase 14/18 legacy GP families: start")
     from gaussianprocessnode_tpu_torch.experiments import legacy_gp as lg
     from gaussianprocessnode_tpu_torch.infer.pad_learn import fit_gppad_colored_theta
     from gaussianprocessnode_tpu_torch.infer.sde_gp import sde_gp_smooth
@@ -2695,7 +2699,7 @@ def phase_legacy(card):
           "the legacy families launched the float32 SE Gram kernel")
     out["launches"] = main_launches + rest
     out["launches_by_path"] = {"legacy_padscale": main_launches, "legacy_workloads": rest}
-    say("phase 14/17 legacy GP families: done")
+    say("phase 14/18 legacy GP families: done")
     return out
 
 
@@ -2765,7 +2769,7 @@ def phase_parallel(seed, card):
 
     Each path's launch count is set to 0 just before it and read just
     after."""
-    say("phase 15/17 parallel layer (world size 1 over NCCL): start")
+    say("phase 15/18 parallel layer (world size 1 over NCCL): start")
     from gaussianprocessnode_tpu_torch.experiments import banana as brunner
     from gaussianprocessnode_tpu_torch.experiments import kin40k as runner
     from gaussianprocessnode_tpu_torch.experiments import pendulum as prunner
@@ -2967,7 +2971,7 @@ def phase_parallel(seed, card):
                                "dp_banana_nccl": out["dp_banana"]["launches"],
                                "tp_sweep_predict_nccl": tp_launches,
                                "sp_gpssm_nccl": sp_launches}
-    say("phase 15/17 parallel layer (world size 1 over NCCL): done")
+    say("phase 15/18 parallel layer (world size 1 over NCCL): done")
     return out
 
 
@@ -3227,7 +3231,7 @@ def phase_records(seed, card):
 
 
 def phase_16(seed, z, card):
-    say("phase 16/17 Ozaki f64 product, serving record, entry: start")
+    say("phase 16/18 Ozaki f64 product, serving record, entry: start")
     oz = phase_ozaki(seed, z, card)
     recs = phase_records(seed, card)
     route = {"name": "ozaki_matmul", "route": "cuBLASLt int8 GEMM (torch._int_mm), a library "
@@ -3235,7 +3239,7 @@ def phase_16(seed, z, card):
              "counterpart_of": "gaussianprocessnode_tpu/ops/ozaki.py:103 (jnp.matmul int8, "
              "no Pallas kernel)", **oz}
     print(json.dumps({"library_routes": [route]}), flush=True)
-    say("phase 16/17 Ozaki f64 product, serving record, entry: done")
+    say("phase 16/18 Ozaki f64 product, serving record, entry: done")
     return recs
 
 
@@ -3258,7 +3262,7 @@ def phase_headline(card):
     it to 0 again where their training starts, so the reading holds the
     training, the prediction and, for the collapsed run, its profiled
     chunk."""
-    say("phase 17/17 headline runners against the JAX figures: start")
+    say("phase 17/18 headline runners against the JAX figures: start")
     from gaussianprocessnode_tpu_torch.experiments import banana, headline, kin40k
     from gaussianprocessnode_tpu_torch.experiments import vsgp_baselines as vb
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
@@ -3298,9 +3302,125 @@ def phase_headline(card):
     ratio_jax = figs["kin40k_f32_over_f64"][str(depth["kin40k_f32"])]
     print(f"headline kin40k float32 over float64 SMSE: port {ratio_port:.4f}, JAX "
           f"{ratio_jax:.4f} [{card}]", flush=True)
-    say("phase 17/17 headline runners against the JAX figures: done")
+    say("phase 17/18 headline runners against the JAX figures: done")
     return {**out, "f32_over_f64": {"port": ratio_port, "jax": ratio_jax},
             "launches_by_path": launches, "launches": sum(launches.values())}
+
+
+SVGP_M, SVGP_B = 512, 262_144  # the kin40k SVGP serving cell: 512 inducing inputs, 262,144 rows
+
+
+def _svgp_var_gaps(out, inputs):
+    """(mean, var) gaps of ``out`` from the plain version in float64 on the
+    same float32 inputs: max |mean − mean₆₄| over max |Y|ᵀ|m̃|, and max
+    |var − var₆₄| over σ² (the size of the terms that cancel)."""
+    from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_reference
+
+    Kux, Lu, A, m, kxx = (t.double() for t in inputs)
+    m64, v64 = svgp_var_reference(Kux, Lu, A, m, kxx)
+    Y = torch.linalg.solve_triangular(Lu, Kux, upper=False)
+    scale = float((Y.abs().T @ m.abs()).max())
+    return (float((out[0].double() - m64).abs().max()) / scale,
+            float((out[1].double() - v64).abs().max()) / float(kxx.max()))
+
+
+def phase_svgp_var(seed, z, card):
+    """The SVGP variance kernel at the kin40k SVGP cell's shape (M = 512,
+    B = 262,144, D = 8; the golden kin40k θ), on its inputs as the serving
+    handle gives them: the Gram as ``se_gram_kernel`` writes it, Lu from
+    ``torch.linalg.cholesky`` (column-major) and a lower-triangular Ã
+    (row-major), each read in place. One checked call, counted once by
+    ``svgp_var_cuda.launches`` (zeroed first); its mean and variance within
+    4× the plain float32 version's own distance from the float64 one, plus
+    1e-6, a limit the plain version with TF32 products must fail; then its
+    device time (a CUDA graph of 20 launches, twice), the plain route's
+    (cuBLAS trsm, sgemm, reductions: the library's) and the bound, 2M²B
+    FLOPs at the float32 FMA peak."""
+    say("phase 18/18 SVGP variance kernel: start")
+    from gaussianprocessnode_tpu_torch.ops.kernels import softplus
+    from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda, se_gram_reference
+    from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_cuda, svgp_var_reference
+    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
+
+    M, B, D = SVGP_M, SVGP_B, D_IN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sp = softplus(torch.as_tensor(z["theta"])).double().cuda()
+    var, ls = sp[0], sp[1:]
+    Xu = torch.randn((M, D), generator=g, device="cuda")
+    X = torch.randn((B, D), generator=g, device="cuda")
+    Kuu = se_gram_reference(Xu.double(), Xu.double(), var, ls)
+    Lu = torch.linalg.cholesky(Kuu + 1e-6 * var * torch.eye(M, dtype=torch.float64,
+                                                            device="cuda")).float()
+    A = 0.05 * torch.tril(torch.randn((M, M), generator=g, device="cuda"), -1)
+    A = A + torch.diag(0.05 + torch.rand(M, generator=g, device="cuda"))
+    m = torch.randn(M, generator=g, device="cuda")
+    Kux = se_gram_cuda(Xu, X, var.float(), ls.float())
+    kxx = torch.full((B,), float(var), device="cuda")
+    inputs = (Kux, Lu, A, m, kxx)
+    check(Lu.mT.is_contiguous() and A.is_contiguous() and Kux.is_contiguous(),
+          "the SVGP variance inputs are not laid out as the serving handle's")
+    svgp_var_cuda.launches = 0
+    with torch.no_grad():
+        out = svgp_var_cuda(*inputs)
+        torch.cuda.synchronize()
+        check(svgp_var_cuda.launches == 1,
+              f"svgp_var_cuda counted {svgp_var_cuda.launches} launches for one call")
+        gm, gv = _svgp_var_gaps(out, inputs)
+        pm, pv = _svgp_var_gaps(svgp_var_reference(*inputs), inputs)
+        lim_m, lim_v = 4 * pm + 1e-6, 4 * pv + 1e-6
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tm, tv = _svgp_var_gaps(svgp_var_reference(*inputs), inputs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    ok = gm <= lim_m and gv <= lim_v and float(out[1].min()) >= 1e-12
+    print(f"svgp_var {M}x{B}x{D}: mean gap {gm:.3e} (limit {lim_m:.3e}; plain float32 "
+          f"{pm:.3e}; TF32 {tm:.3e}), variance gap {gv:.3e} (limit {lim_v:.3e}; plain "
+          f"float32 {pv:.3e}; TF32 {tv:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the SVGP variance kernel disagrees with its plain version in float64")
+    check(tm > lim_m or tv > lim_v, "the plain version with TF32 products passes the "
+          "SVGP variance kernel's limit: it cannot tell float32 from TF32")
+    with torch.no_grad():
+        timed = svgp_var_cuda.launches
+        device_runs = [cuda_graph_time_ms(lambda: svgp_var_cuda(*inputs), iters=20)
+                       for _ in range(2)]
+        timing_launches = svgp_var_cuda.launches - timed
+        plain_ms = cuda_graph_time_ms(lambda: svgp_var_reference(*inputs), iters=5)
+    check(timing_launches == 2 * (3 + 20),
+          f"svgp_var_cuda counted {timing_launches} launches in two timed graphs of 20")
+    device_ms = min(device_runs)
+    bound_ms = 2.0 * M * M * B / PEAK_F32_FLOP_PER_S * 1e3
+    print(f"svgp_var {M}x{B}x{D}: device {device_runs} ms (CUDA graph of 20), bound "
+          f"{bound_ms:.4f} ms (2M^2B FLOPs at {PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s), "
+          f"share {bound_ms / device_ms:.3f}; plain route (cuBLAS trsm, sgemm, reductions) "
+          f"{plain_ms:.4f} ms [{card}]", flush=True)
+    say("phase 18/18 SVGP variance kernel: done")
+    return {
+        "name": "svgp_var",
+        "route": "cuda",
+        "source": "gaussianprocessnode_tpu_torch/ops/csrc/svgp_var.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "launches": 1 + timing_launches,
+        "launches_by_path": {"checked_call": 1, "timing": timing_launches},
+        "max_mean_gap": gm,
+        "max_var_gap": gv,
+        "limits": {"mean": lim_m, "var": lim_v},
+        "plain_f32_gaps": {"mean": pm, "var": pv},
+        "tf32_gaps": {"mean": tm, "var": tv},
+        "ms": device_ms,
+        "device_ms": device_ms,
+        "device_ms_runs": device_runs,
+        "plain_ms": plain_ms,
+        "library_ms": plain_ms,
+        "library": "the plain route: cuBLAS trsm, sgemm and reductions",
+        "bound_ms": bound_ms,
+        "bound_by": "operations",
+        "roofline_share": bound_ms / device_ms,
+        "shape": [M, B, D],
+        "card": card,
+    }
 
 
 def main(argv=None) -> int:
@@ -3333,6 +3453,7 @@ def main(argv=None) -> int:
         parallel = phase_parallel(args.seed, card)
         records = phase_16(args.seed, z, card)
         headline = phase_headline(card)
+        svgp_var = phase_svgp_var(args.seed, z, card)
     except SmokeFailure as e:
         say(f"FAILED: {e}")
         return 1
@@ -3419,7 +3540,7 @@ def main(argv=None) -> int:
         "card": card,
     }
     print(f"nvidia-smi: {card}", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, svgp_var]}), flush=True)
     say("all phases passed")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

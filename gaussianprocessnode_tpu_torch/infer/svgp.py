@@ -34,6 +34,7 @@ from ..config import JITTER_KUU
 from ..ops.kernels import softplus
 from ..ops.linalg import chol_lower, solve_psd, tri_solve_lower, tri_solve_upper
 from ..ops.quadrature import gh_nodes
+from ..ops.svgp_var import svgp_var_cuda, svgp_var_reference, svgp_var_route
 from ..utils import tracing
 from .minibatch import AdaMaxChain, _leaves, _like
 
@@ -92,21 +93,23 @@ def svgp_factors(kernel, params: SVGPParams, Xu, jitter: float = JITTER_KUU,
 
 def svgp_predict_batch(kernel, theta, Xu, X, Lu, m_white, A):
     """The whitened predictive q(f) = N(mean, var) at the rows of X, from
-    the factors of :func:`svgp_factors`: Y = Lu⁻¹K(Xu, X) (a triangular
-    solve, span ``svgp.solve``), mean = Yᵀm̃, and
-    var = k(x, x) − ‖y‖² + ‖Ãᵀy‖² per column (span ``svgp.var``), floored at
-    1e-12 by ``torch.maximum``, which splits the gradient at a tie as
-    ``jnp.maximum`` does. The floor is made on the device, so a CUDA graph
-    can capture the call."""
+    the factors of :func:`svgp_factors`: Y = Lu⁻¹K(Xu, X), mean = Yᵀm̃, and
+    var = k(x, x) − ‖y‖² + ‖Ãᵀy‖² per column, floored at 1e-12 on the
+    device, so a CUDA graph can capture the call. After the Gram, the route
+    is chosen from what the call can observe (``ops.svgp_var.svgp_var_route``):
+    float32 operands (the Gram, Lu, Ã, m̃, k(x, x)) on a CUDA card with
+    gradients off and M ≤ ``SVGP_VAR_MAX_M`` (a serving handle's call) go
+    to the CUDA kernel ``ops.svgp_var.svgp_var_cuda`` (span
+    ``svgp.fused``), which reads only the lower triangles of Lu and Ã;
+    every other call (the CPU, float64 or mixed dtypes, the trainers' ELBO
+    with gradients on, a larger M) to the plain, differentiable
+    ``svgp_var_reference`` (spans ``svgp.solve`` and ``svgp.var``)."""
     Kux = kernel(theta, Xu, X)  # (M, N)
-    with tracing.span("svgp.solve"):
-        Akx = tri_solve_lower(Lu, Kux)  # Lu⁻¹ Kux
     kxx = kernel.diag(theta, X)
-    mean = Akx.T @ m_white
-    with tracing.span("svgp.var"):
-        SAk = A.T @ Akx
-        var = kxx - torch.sum(Akx * Akx, dim=0) + torch.sum(SAk * SAk, dim=0)
-        return mean, torch.maximum(var, var.new_full((), 1e-12))
+    if svgp_var_route(Kux, Lu, A, m_white, kxx) == "kernel":
+        with tracing.span("svgp.fused"):
+            return svgp_var_cuda(Kux, Lu, A, m_white, kxx)
+    return svgp_var_reference(Kux, Lu, A, m_white, kxx)
 
 
 def _marginal_f(kernel, params: SVGPParams, Xu, X, whitened: bool = True,

@@ -7,9 +7,10 @@ matmul-only) and each request batch costs one SE Gram of K(Xu, x*) plus one
 mat-vec, and for a classifier the Φ epilogue. Beyond the JAX package's
 serving API, ``SVGPRegressor`` serves the whitened SVGP baseline with its
 predictive variance: Kuu's factor once, then per batch the Gram, a
-triangular solve against it and a product with the q(u) factor. With
-``Kernel(use_kernel=True)`` the Gram is the hand-written CUDA kernel of
-``ops/se_gram.py``. The GPSSM filter (``GPSSMFilter``) costs one Gram of
+triangular solve against it and a product with the q(u) factor, which on
+the card in float32 are one hand-written CUDA kernel
+(``ops/svgp_var.py``). With ``Kernel(use_kernel=True)`` the Gram is the
+hand-written CUDA kernel of ``ops/se_gram.py``. The GPSSM filter (``GPSSMFilter``) costs one Gram of
 the inducing inputs against the 2·D cubature points per observation.
 ``shard_requests`` gives each rank of a data-parallel server its slice of
 a request batch; the state is replicated, so no collective is needed.
@@ -17,7 +18,7 @@ a request batch; the state is replicated, so no collective is needed.
 On the card each regression, classification or SVGP handle holds its
 calls as CUDA graphs (:class:`GraphCache`): a call shape's second call
 captures the whole call (softplus θ, the Gram, Kᵀμ_v, the fill, Φ; the
-SVGP handle's solve and product) and every later call replays it, so the
+SVGP handle's variance kernel) and every later call replays it, so the
 host no longer paces the device. The kernels, their order and the answers
 are those of an eager call.
 """
@@ -272,9 +273,10 @@ class SVGPRegressor:
     mean = Yᵀm̃, var = k(x*, x*) − ‖y‖² + ‖Ãᵀy‖², floored at 1e-12.
 
     ``from_params`` factors Kuu and forms Ã once, in float64; a call costs
-    the Gram, one triangular solve against it and one product with Ãᵀ, held
-    as a CUDA graph on the card as the UniSGP handles' calls are
-    (:class:`GraphCache`)."""
+    the Gram, one triangular solve against it and one product with Ãᵀ (on
+    the card in float32, one launch of the variance kernel,
+    ``ops/svgp_var.py``), held as a CUDA graph on the card as the UniSGP
+    handles' calls are (:class:`GraphCache`)."""
 
     kernel: object
     theta: torch.Tensor

@@ -37,9 +37,14 @@ The program's spans (names as the benchmark's layers read them):
 - ``serve.matvec`` and ``serve.fill``: Kᵀμ_v and the 1/w̄ fill of
   ``infer.batch_vmp.predict_out``;
 - ``probit.phi``: Φ in ``infer.batch_vmp.predict_probit``;
-- ``svgp.solve`` and ``svgp.var``: the triangular solve Lu⁻¹K and the
-  variance (the product with Ãᵀ, the sums of squares, the floor) of
-  ``infer.svgp.svgp_predict_batch``, an SVGP handle's call;
+- ``svgp.fused``: the launch of the SVGP variance kernel
+  (``ops.svgp_var.svgp_var_cuda``: the solve, the mean, the product with
+  Ãᵀ, the sums of squares and the floor in one kernel), the route of an
+  SVGP handle's call on the card in ``infer.svgp.svgp_predict_batch``;
+- ``svgp.solve`` and ``svgp.var``: on that function's plain route
+  (``ops.svgp_var.svgp_var_reference``: the CPU, float64, gradients on, a
+  larger M), the triangular solve Lu⁻¹K and the variance (the product with
+  Ãᵀ, the sums of squares, the floor);
 - ``serve.capture``: a handle call captured as a CUDA graph
   (``serve.GraphCache``; the spans above, inside it, queue work that runs
   only in the replays);

@@ -16,7 +16,14 @@ warm-up calls capture the handle's graph) and prints one JSON line:
 - device µs by CUDA events (median of 200): the replay alone and a whole
   call with its host lead; the closed loop's µs a call (call, synchronize);
 - ``api_us``: count and mean host µs of each CUDA runtime call and ATen
-  operator over 50 calls under ``torch.profiler`` (CUPTI adds to them).
+  operator over 50 calls under ``torch.profiler`` (CUPTI adds to them);
+- ``svgp_var``, in an SVGP cell: the variance stage alone on the first
+  pool batch's Gram, device ms by CUDA graph: the kernel
+  (``ops.svgp_var.svgp_var_cuda``, 20 launches a graph, twice), the plain
+  version (``svgp_var_reference``: cuBLAS trsm, GEMM and reductions; 5
+  calls a graph) and the Gram itself, beside the stage's least time
+  (``portbench.svgp_counts.var_least_seconds`` at the card's peaks) and
+  the kernel's FLOP rate on 2M²B.
 """
 
 import argparse
@@ -27,6 +34,31 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def svgp_var_costs(h, X) -> dict:
+    """The SVGP handle's variance stage on the Gram of X, timed alone."""
+    import torch
+
+    from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_cuda, svgp_var_reference
+    from gaussianprocessnode_tpu_torch.utils.profiling import cuda_graph_time_ms
+    from portbench import peaks, svgp_counts
+
+    launches = svgp_var_cuda.launches
+    with torch.no_grad():
+        Kux, kxx = h.kernel(h.theta, h.Xu, X), h.kernel.diag(h.theta, X)
+        args = (Kux, h.Lu, h.A, h.m_white, kxx)
+        kernel_ms = [cuda_graph_time_ms(lambda: svgp_var_cuda(*args), iters=20) for _ in range(2)]
+        plain_ms = cuda_graph_time_ms(lambda: svgp_var_reference(*args), iters=5)
+        gram_ms = cuda_graph_time_ms(lambda: h.kernel(h.theta, h.Xu, X), iters=20)
+    svgp_var_cuda.launches = launches
+    M, B = Kux.shape
+    pk = peaks.for_card(torch.cuda.get_device_name())
+    bound_ms = svgp_counts.var_least_seconds(M, B, pk) * 1e3 if pk else None
+    return {"shape": [M, B, X.shape[1]], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "gram_ms": gram_ms, "bound_ms": bound_ms,
+            "roofline_share": bound_ms / min(kernel_ms) if pk else None,
+            "kernel_tflop_per_s": 2 * M * M * B / min(kernel_ms) / 1e9}
 
 
 def main(argv=None) -> int:
@@ -104,6 +136,8 @@ def main(argv=None) -> int:
             sync("cuda")
     res["api_us"] = {e.key: [e.count, e.cpu_time_total / e.count] for e in prof.key_averages()
                      if e.key.startswith(("cuda", "aten::"))}
+    if isinstance(h, serve.SVGPRegressor):
+        res["svgp_var"] = svgp_var_costs(h, X)
     res["graph_counts"] = dict(serve.graph_counts)
     res["device"] = {"kind": torch.cuda.get_device_name(), "power_limit": card.power_limit()}
     print(json.dumps({"cell": args.workload, "seed": args.seed, **res}), flush=True)

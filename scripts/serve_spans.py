@@ -32,14 +32,20 @@ profiler's. It writes both kinds, with ``parent`` and ``request``, to
   each part of a gap;
 - ``launches``: the Gram launches queued in the sub-window (eager calls'
   ``se_gram.launch`` spans, and each ``serve.replay`` span's captured
-  launches) against the trace's ``se_gram_kernel`` records;
+  launches) against the trace's ``se_gram_kernel`` records, and the
+  trace's ``svgp_var_kernel`` records (one per SVGP call, replays
+  included) with ``svgp_var_launches``, the variance kernel's launches
+  from Python over the run (``svgp_var_cuda.launches``: eager calls and
+  captures; a replay re-runs its captured launch);
 - ``gc``: the collections during the window, by generation;
 - ``graphs``: the serving handles' graph engagement over the run, set-up
   included (``serve.graph_counts``: captures, replays, eager calls,
   fallbacks) and the replays' share of the calls;
-- ``svgp_stages``: for an SVGP cell, the self time of ``svgp.solve`` and
-  ``svgp.var`` in the calls that ran the handle's Python (a replay runs
-  none): the eager warm-up call and the capture, each apart.
+- ``svgp_stages``: for an SVGP cell, the self time of its variance
+  stage's spans in the calls that ran the handle's Python (a replay runs
+  none): ``svgp.fused`` on the kernel's route, ``svgp.solve`` and
+  ``svgp.var`` on the plain one; the eager warm-up call and the capture,
+  each apart.
 """
 
 import time
@@ -60,7 +66,7 @@ from portbench import faults, manifest as mf  # noqa: E402
 from portbench import trace as bench_trace  # noqa: E402
 
 SETUP_SPANS = ("ops.load_library", "serve.from_natural", "serve.from_svgp")
-SVGP_STAGES = ("svgp.solve", "svgp.var")
+SVGP_STAGES = ("svgp.fused", "svgp.solve", "svgp.var")
 OUT = ROOT / "portbench_out"
 
 
@@ -235,7 +241,8 @@ def launches(trace, program):
     replayed = sum((s.attrs or {}).get("launches", 0) for s in replays)
     return {"launch_spans": spans, "replay_spans": len(replays),
             "replayed_launches": replayed, "launches": spans + replayed,
-            "kernel_records": trace.kernel_time("se_gram_kernel")[0]}
+            "kernel_records": trace.kernel_time("se_gram_kernel")[0],
+            "variance_kernel_records": trace.kernel_time("svgp_var_kernel")[0]}
 
 
 def gc_during(program, bench_spans):
@@ -307,8 +314,9 @@ def engagement(before: dict) -> dict:
 
 def report(cell, seed, seconds, **run_cell_args) -> dict:
     from gaussianprocessnode_tpu_torch import serve
+    from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_cuda
 
-    counts = dict(serve.graph_counts)
+    counts, fused = dict(serve.graph_counts), svgp_var_cuda.launches
     result, program, trace, bench_spans = traced_run(cell, seed, seconds, **run_cell_args)
     write_spans(OUT / f"spans-{cell}-{seed}.jsonl", program, bench_spans)
     window_ns = (int(trace.window[0] * 1e9), int(trace.window[1] * 1e9))
@@ -316,7 +324,8 @@ def report(cell, seed, seconds, **run_cell_args) -> dict:
             "calls": per_call(program, window_calls(program, bench_spans, window_ns)),
             "setup": setup_part(program, bench_spans, T0_NS),
             "idle": labelled(trace, program),
-            "launches": launches(trace, program),
+            "launches": {**launches(trace, program),
+                         "svgp_var_launches": svgp_var_cuda.launches - fused},
             "gc": gc_during(program, bench_spans),
             "graphs": engagement(counts),
             "svgp_stages": svgp_stages(program),

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel, its route, and the serving and training paths
+"""The port's CUDA kernels (the SE Gram, the SVGP variance), their routes,
+and the serving and training paths
 (kin40k regression, banana classification, the SVGP handle, the toy
 workloads, the VSGP collapsed bound, the pendulum objective's Grams, the GPSSM chain smoother,
 its streaming filter and the associative scan, the GPLVM sweep, the
@@ -22,6 +23,7 @@ import torch
 
 from gaussianprocessnode_tpu_torch import convert, serve
 from gaussianprocessnode_tpu_torch.ops import se_gram as sg
+from gaussianprocessnode_tpu_torch.ops import svgp_var as sv
 
 NPZ = Path(__file__).resolve().parent.parent / "benchmarks" / "kin40k_refxu_trained.npz"
 EPS32 = float(np.finfo(np.float32).eps)
@@ -1015,20 +1017,27 @@ def _svgp_cell_handle(seed=0):
 
 @pytest.mark.gpu
 def test_svgp_handle_replays_equal_eager_calls_at_the_cells_shape_on_card():
-    """The SVGP handle's call (the Gram, the triangular solve, the product
-    with Ãᵀ, the floor made on the device) is captured once, with no
-    fallback; every replay is bit-equal to an eager call on the same batch
-    and adds one Gram launch; ``serve_fused`` rows are the handle's."""
+    """The SVGP handle's call (the Gram, then the variance kernel: the
+    solve, the mean, the product with Ãᵀ, the floor) is captured once, with
+    no fallback; every replay is bit-equal to an eager call on the same
+    batch and adds one Gram launch; ``serve_fused`` rows are the
+    handle's."""
     import dataclasses
 
     _need_card()
     h, X = _svgp_cell_handle()
     counts = dict(serve.graph_counts)
     launches = sg.se_gram_cuda.launches
+    fused = sv.svgp_var_cuda.launches
     first = h(X[0])
+    assert sv.svgp_var_cuda.launches == fused + 1
     captured = h(X[1])
+    assert sv.svgp_var_cuda.launches == fused + 2
     replays = [h(X[i]) for i in (0, 2, 1)]
     assert sg.se_gram_cuda.launches == launches + 5
+    # the variance kernel counts the eager call and the capture; a replay
+    # re-runs the captured launch without Python
+    assert sv.svgp_var_cuda.launches == fused + 2
     delta = {k: serve.graph_counts[k] - counts[k] for k in counts}
     assert delta == {"captures": 1, "replays": 4, "eager": 1, "fallbacks": 0}
     (graph,) = h._graphs.graphs.values()
@@ -1040,3 +1049,189 @@ def test_svgp_handle_replays_equal_eager_calls_at_the_cells_shape_on_card():
     means, vars_ = serve.serve_fused(h, X)
     for i in range(3):
         assert torch.equal(means[i], eager[i][0]) and torch.equal(vars_[i], eager[i][1])
+
+
+SVGP_SP = (0.1764, 2.994, 2.905, 1.74, 2.27, 2.011, 1.582, 1.534, 2.052)
+
+
+def _svgp_var_case(M, B, seed=0, D=8):
+    """The variance kernel's inputs at M × B on the card, float32: the Gram
+    of N(0, I_8) rows against M inducing rows at the kin40k θ, Lu of Kuu
+    (jitter 1e-6·σ², factored in float64), a seeded lower-triangular Ã
+    (N(0, 0.05²) below the diagonal, diagonal in [0.05, 1.05]), m̃ ~ N(0,
+    I) and k(x, x) = σ²."""
+    f64 = torch.float64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    var, ls = SVGP_SP[0], torch.tensor(SVGP_SP[1:1 + D], dtype=f64, device="cuda")
+    Xu = torch.randn((M, D), generator=g, device="cuda")
+    X = torch.randn((B, D), generator=g, device="cuda")
+    Kuu = sg.se_gram_reference(Xu.double(), Xu.double(),
+                               torch.tensor(var, dtype=f64, device="cuda"), ls)
+    Lu = torch.linalg.cholesky(Kuu + 1e-6 * var * torch.eye(M, dtype=f64, device="cuda"))
+    A = 0.05 * torch.tril(torch.randn((M, M), generator=g, dtype=f64, device="cuda"), -1)
+    A = A + torch.diag(0.05 + torch.rand(M, generator=g, dtype=f64, device="cuda"))
+    Kux = sg.se_gram_cuda(Xu, X, torch.tensor(var, dtype=torch.float32, device="cuda"),
+                          ls.float())
+    m = torch.randn(M, generator=g, device="cuda")
+    kxx = torch.full((B,), var, device="cuda")
+    return Kux, Lu.float(), A.float(), m, kxx
+
+
+def _svgp_var_gaps(out, inputs):
+    """max |mean − mean₆₄| over max |Y|ᵀ|m̃| and max |var − var₆₄| / σ²,
+    against the plain version in float64 on the same float32 inputs."""
+    Kux, Lu, A, m, kxx = (t.double() for t in inputs)
+    m64, v64 = sv.svgp_var_reference(Kux, Lu, A, m, kxx)
+    Y = torch.linalg.solve_triangular(Lu, Kux, upper=False)
+    scale = float((Y.abs().T @ m.abs()).max())
+    return (float((out[0].double() - m64).abs().max()) / scale,
+            float((out[1].double() - v64).abs().max()) / SVGP_SP[0])
+
+
+# every edge of the kernel's design: one column, ragged tiles, many more
+# tiles than blocks; M within one 64-row panel, ragged panels, the 64-column
+# tiles' largest M (512) and the 32-column tiles' (600, its largest 1,024),
+# and M % 4 ≠ 0 (30, 66, 1,022), where the wrapper pads the rows of Lu and Ã
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 1000, 131_072])
+@pytest.mark.parametrize("M", [30, 32, 66, 500, 512, 600, 1022, 1024])
+def test_svgp_var_kernel_matches_the_plain_path_and_float64_on_card(M, B):
+    """The kernel's mean and variance against the plain version in float64
+    on the same float32 inputs: within 4× the plain float32 version's own
+    distance from it, plus 1e-6 (the two round in different orders: the
+    kernel sums ‖y‖², m̃ᵀy and ‖z‖² in float64, the plain version in
+    float32 by cuBLAS and reductions). The plain version's distance is
+    read over at least 1,000 columns of the same problem (the kernel's B
+    among them), so that one column's luck does not set the limit. The
+    kernel reads only the lower
+    triangles of Lu and Ã (garbage above them changes no bit); it reads Lu
+    column-major, as ``torch.linalg.cholesky`` leaves it, and Ã row-major,
+    in place where M % 4 = 0, and every other pair of layouts gives the
+    same bits through the wrapper's copy; it launches once a call; the
+    variance is floored at 1e-12."""
+    _need_card()
+    wide = _svgp_var_case(M, max(B, 1000), seed=M + B)
+    with torch.no_grad():
+        pm, pv = _svgp_var_gaps(sv.svgp_var_reference(*wide), wide)
+    inputs = (wide[0][:, :B].contiguous(), *wide[1:4], wide[4][:B].contiguous())
+    Kux, Lu, A, m, kxx = inputs
+    launches = sv.svgp_var_cuda.launches
+    with torch.no_grad():
+        out = sv.svgp_var_cuda(*inputs)
+    torch.cuda.synchronize()
+    assert sv.svgp_var_cuda.launches == launches + 1
+    assert out[0].shape == out[1].shape == (B,) and out[0].dtype == torch.float32
+    gm, gv = _svgp_var_gaps(out, inputs)
+    assert gm <= 4 * pm + 1e-6 and gv <= 4 * pv + 1e-6, (gm, gv, pm, pv)
+    assert float(out[1].min()) >= 1e-12
+    noise = torch.triu(torch.randn((M, M), device="cuda"), 1)
+    again = sv.svgp_var_cuda(Kux, Lu + noise, A - noise, m, kxx)
+    assert torch.equal(again[0], out[0]) and torch.equal(again[1], out[1])
+    assert sv._column_major(Lu) and A.is_contiguous()
+    in_place = M % 4 == 0
+    assert (sv._laid_out(Lu, True)[0].data_ptr() == Lu.data_ptr()) == in_place
+    assert (sv._laid_out(A, False)[0].data_ptr() == A.data_ptr()) == in_place
+    row_l, col_a = Lu.contiguous(), A.mT.contiguous().mT
+    for lu, a in ((row_l, col_a), (row_l, A), (Lu, col_a)):
+        other = sv.svgp_var_cuda(Kux, lu, a, m, kxx)
+        assert torch.equal(other[0], out[0]) and torch.equal(other[1], out[1])
+
+
+@pytest.mark.gpu
+def test_svgp_var_kernel_without_the_q_u_factor_and_at_the_floor_on_card():
+    """Ã = 0 (the benchmark's ``variance_term_dropped`` fault): the
+    variance is k(x, x) − ‖y‖², at most the Ã ≠ 0 answer, held to the
+    plain version as above; with Ã = 0, k(x, x) = 0 on every other column
+    puts those variances (−‖y‖²) under the floor, which then reads exactly
+    float32(1e-12) and leaves the other columns' bits and the means
+    alone."""
+    _need_card()
+    Kux, Lu, A, m, kxx = _svgp_var_case(512, 4096, seed=7)
+    full = sv.svgp_var_cuda(Kux, Lu, A, m, kxx)
+    zero = torch.zeros_like(A)
+    dropped = sv.svgp_var_cuda(Kux, Lu, zero, m, kxx)
+    assert torch.equal(dropped[0], full[0]) and bool((dropped[1] <= full[1]).all())
+    gm, gv = _svgp_var_gaps(dropped, (Kux, Lu, zero, m, kxx))
+    pm, pv = _svgp_var_gaps(sv.svgp_var_reference(Kux, Lu, zero, m, kxx), (Kux, Lu, zero, m, kxx))
+    assert gm <= 4 * pm + 1e-6 and gv <= 4 * pv + 1e-6, (gm, gv, pm, pv)
+    low = kxx.clone()
+    low[::2] = 0.0
+    floored = sv.svgp_var_cuda(Kux, Lu, zero, m, low)
+    floor = torch.tensor(1e-12, dtype=torch.float32, device="cuda")
+    assert bool((floored[1][::2] == floor).all())
+    assert torch.equal(floored[1][1::2], dropped[1][1::2]) and torch.equal(floored[0], full[0])
+
+
+@pytest.mark.gpu
+def test_svgp_replay_runs_the_gram_and_the_variance_kernel_only_on_card():
+    """One replay of the SVGP handle's graph at the cell's shape runs one
+    ``se_gram_kernel``, one ``svgp_var_kernel`` and, beside them, only
+    copies and small elementwise kernels (θ's softplus, k(x, x)): no cuBLAS
+    solve, GEMM or mat-vec, no reduction."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    h, X = _svgp_cell_handle(seed=3)
+    h(X[0])
+    h(X[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h(X[2])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.device_time > 0]
+    assert sum("se_gram_kernel" in n for n in names) == 1, names
+    assert sum("svgp_var_kernel" in n for n in names) == 1, names
+    banned = ("trsm", "gemm", "gemv", "reduce", "xmma")
+    assert not [n for n in names if any(b in n.lower() for b in banned)], names
+
+
+@pytest.mark.gpu
+def test_svgp_calls_off_the_kernels_route_take_the_plain_version_on_card():
+    """On the card, float64, float32 rows against float64 parameters and
+    factors (``svgp_predict`` with float64 parameters), a float32 call with
+    gradients on, and M above the kernel's maximum each launch no variance
+    kernel and answer as the plain version does, bit for bit."""
+    from gaussianprocessnode_tpu_torch.infer.svgp import svgp_predict_batch
+    from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, invsoftplus
+
+    _need_card()
+    kernel = Kernel("se", transform="softplus", use_kernel=True)
+    f32, f64 = torch.float32, torch.float64
+    for x_dtype, dtype, grad, M in ((f64, f64, False, 64), (f32, f64, False, 64),
+                                    (f32, f32, True, 64), (f32, f32, False, sv.SVGP_VAR_MAX_M + 1)):
+        Kux, Lu, A, m, kxx = _svgp_var_case(M, 500, seed=11)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        Xu = torch.randn((M, 8), generator=g, device="cuda", dtype=dtype)
+        X = torch.randn((500, 8), generator=g, device="cuda", dtype=x_dtype)
+        theta = invsoftplus(torch.tensor(SVGP_SP, dtype=dtype, device="cuda"))
+        state = [t.to(dtype) for t in (Lu, m, A)]
+        launches = sv.svgp_var_cuda.launches
+        case = (x_dtype, dtype, grad, M)
+        with torch.set_grad_enabled(grad):
+            got = svgp_predict_batch(kernel, theta, Xu, X, *state)
+            want = sv.svgp_var_reference(kernel(theta, Xu, X), state[0], state[2], state[1],
+                                         kernel.diag(theta, X))
+        assert sv.svgp_var_cuda.launches == launches, case
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), case
+
+
+@pytest.mark.gpu
+def test_svgp_var_kernel_wrapper_raises_on_what_it_does_not_take_on_card():
+    """A CUDA call the kernel cannot take raises: it never falls back."""
+    _need_card()
+    Kux, Lu, A, m, kxx = _svgp_var_case(64, 300, seed=2)
+    with pytest.raises(TypeError, match="float32"):
+        sv.svgp_var_cuda(Kux, Lu.double(), A, m, kxx)
+    with pytest.raises(ValueError, match="contiguous"):
+        sv.svgp_var_cuda(Kux, Lu, torch.zeros((64, 128), device="cuda")[:, ::2], m, kxx)
+    with pytest.raises(ValueError, match="contiguous"):
+        sv.svgp_var_cuda(Kux.T.contiguous().T, Lu, A, m, kxx)
+    with pytest.raises(ValueError, match="m_white"):
+        sv.svgp_var_cuda(Kux, Lu, A, m[:-1], kxx)
+    with pytest.raises(ValueError, match="Kux"):
+        sv.svgp_var_cuda(Kux, Lu, A, m, kxx.cpu())
+    big = torch.zeros((sv.SVGP_VAR_MAX_M + 1, 8), device="cuda")
+    eye = torch.eye(sv.SVGP_VAR_MAX_M + 1, device="cuda")
+    with pytest.raises(ValueError, match="outside"):
+        sv.svgp_var_cuda(big, eye, eye, big[:, 0].contiguous(), torch.ones(8, device="cuda"))

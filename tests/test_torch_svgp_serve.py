@@ -2,7 +2,11 @@
 benchmark's plain float64 reference (``portbench/reference/svgp_serve.py``)
 and against ``infer/svgp.py::svgp_predict``, through ``serve_fused``,
 ``throughput`` and a stand-in graph capture, with its spans, the
-benchmark's faults, and the kin40k SVGP runner that scores through it.
+benchmark's faults, and the kin40k SVGP runner that scores through it; and
+the route of ``svgp_predict_batch`` between the CUDA kernel of
+``ops/svgp_var.py`` and its plain version: every call the CPU can make
+takes the plain version, with today's answers bit for bit, and the
+kernel's wrapper refuses what the kernel does not take.
 
 Seeded problem: M = 40 inducing inputs and B = 4,096 request rows in 4-D
 (standard normal), θ = softplus⁻¹ of (0.6, 1.3, 0.9, 1.6, 1.1) (κ(Kuu) ≈
@@ -36,7 +40,9 @@ import torch
 from gaussianprocessnode_tpu_torch import serve
 from gaussianprocessnode_tpu_torch.config import JITTER_KUU
 from gaussianprocessnode_tpu_torch.infer import svgp
+from gaussianprocessnode_tpu_torch.ops import svgp_var
 from gaussianprocessnode_tpu_torch.ops.kernels import Kernel, invsoftplus
+from gaussianprocessnode_tpu_torch.ops.linalg import tri_solve_lower
 from gaussianprocessnode_tpu_torch.utils import tracing
 from portbench.drivers import svgp_serve as driver
 from portbench.reference import svgp_serve as reference
@@ -233,8 +239,9 @@ def test_the_kin40k_svgp_runner_scores_through_the_handle(monkeypatch):
 
 def test_serve_spans_reads_the_stages_of_the_eager_call_and_the_capture():
     """``scripts/serve_spans.py``'s ``svgp_stages``: the eager call's and
-    the capture's ``svgp.solve`` and ``svgp.var`` self times, apart; a
-    replay records none."""
+    the capture's ``svgp.solve`` and ``svgp.var`` self times (the plain
+    route) or ``svgp.fused`` (the kernel's route), apart; a replay records
+    none."""
     from gaussianprocessnode_tpu_torch.utils.tracing import Span
 
     spec = importlib.util.spec_from_file_location("serve_spans",
@@ -260,3 +267,203 @@ def test_serve_spans_reads_the_stages_of_the_eager_call_and_the_capture():
     replayed = [span("serve.predict", 400, 410), span("serve.replay", 400, 409, 0)]
     assert serve_spans.svgp_stages(replayed) == {}
     assert "serve.from_svgp" in serve_spans.SETUP_SPANS
+    fused = [span("serve.predict", 0, 100), span("se_gram.dispatch", 5, 20, 0),
+             span("svgp.fused", 30, 50, 0),
+             span("serve.predict", 200, 300), span("serve.capture", 200, 290, 3),
+             span("svgp.fused", 210, 214, 4), span("serve.predict", 400, 410),
+             span("serve.replay", 400, 409, 6)]
+    assert serve_spans.svgp_stages(fused) == {
+        "eager": {"svgp.fused": {"n": 1, "self_us": 0.02}},
+        "capture": {"svgp.fused": {"n": 1, "self_us": 0.004}}}
+
+
+def _todays_predict_batch(kernel, theta, Xu, X, Lu, m_white, A):
+    """``svgp_predict_batch`` as it was before the kernel's route: the
+    answers the plain route must keep."""
+    Kux = kernel(theta, Xu, X)
+    Akx = tri_solve_lower(Lu, Kux)
+    kxx = kernel.diag(theta, X)
+    mean = Akx.T @ m_white
+    SAk = A.T @ Akx
+    var = kxx - torch.sum(Akx * Akx, dim=0) + torch.sum(SAk * SAk, dim=0)
+    return mean, torch.maximum(var, var.new_full((), 1e-12))
+
+
+def _operands(device, dtype, Mi, Bi=100, lu_dtype=None):
+    """(Kux, Lu, A, m̃, k(x, x)) as metadata only: fake tensors, which may
+    claim a CUDA card on a machine with none (the route reads no data)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        def t(*shape, dt=dtype):
+            return torch.empty(shape, device=device, dtype=dt)
+
+        return (t(Mi, Bi), t(Mi, Mi, dt=lu_dtype or dtype), t(Mi, Mi), t(Mi), t(Bi))
+
+
+@pytest.mark.parametrize("device, dtype, grad, M, want", [
+    ("cuda", F32, False, 512, "kernel"),
+    ("cuda:0", F32, False, svgp_var.SVGP_VAR_MAX_M, "kernel"),
+    ("cpu", F32, False, 512, "plain"),
+    ("cuda", F64, False, 512, "plain"),
+    ("cuda", F32, True, 512, "plain"),
+    ("cuda", F32, False, svgp_var.SVGP_VAR_MAX_M + 1, "plain"),
+    ("meta", F32, False, 512, "plain"),
+])
+def test_the_route_is_chosen_from_what_the_call_can_observe(device, dtype, grad, M, want):
+    """Float32 operands on a CUDA card with gradients off and M within the
+    kernel's maximum go to the kernel; the CPU, float64, a call with
+    gradients on (the trainers' ELBO) and a larger M keep the plain
+    version. Deciding reads no card."""
+    with torch.set_grad_enabled(grad):
+        assert svgp_var.svgp_var_route(*_operands(device, dtype, M)) == want
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_an_operand_in_another_dtype_takes_the_plain_route(which):
+    """The route reads the dtype of every operand the kernel would read, not
+    of the rows alone: float32 rows against float64 factors (``svgp_predict``
+    with float64 parameters) keep the plain version, which answers them, and
+    never reach the kernel's float32 check."""
+    ops = list(_operands("cuda", F32, 64))
+    ops[which] = _operands("cuda", F64, 64)[which]
+    with torch.no_grad():
+        assert svgp_var.svgp_var_route(*_operands("cuda", F32, 64)) == "kernel"
+        assert svgp_var.svgp_var_route(*ops) == "plain"
+
+
+@pytest.mark.parametrize("dtype, grad, m_inducing", [
+    (F32, False, M), (F64, False, M), (F64, True, M), (F32, True, M),
+    (F32, False, svgp_var.SVGP_VAR_MAX_M + 1),
+], ids=["cpu-float32", "float64", "float64-grad", "float32-grad", "M-above-the-maximum"])
+def test_the_plain_route_keeps_todays_answers_and_spans(dtype, grad, m_inducing):
+    """CPU tensors, float64, a call with gradients on and M above the
+    kernel's maximum each take the plain version: bit for bit the answers
+    of the code before the kernel's route, with its spans ``svgp.solve``
+    and ``svgp.var`` and no ``svgp.fused``; with gradients on, the answers
+    carry a graph back to θ, m̃ and Ã."""
+    g = torch.Generator().manual_seed(13)
+    Mi, Bi = m_inducing, (64 if m_inducing > M else B)
+    Xu = torch.randn(Mi, D, generator=g, dtype=dtype)
+    X = torch.randn(Bi, D, generator=g, dtype=dtype)
+    theta = invsoftplus(torch.tensor(SP, dtype=dtype))
+    Lu = torch.linalg.cholesky(KERNEL.kuu(theta, Xu, jitter=1e-4))
+    m = torch.randn(Mi, generator=g, dtype=dtype)
+    A = torch.tril(0.2 * torch.randn(Mi, Mi, generator=g, dtype=dtype), -1) + torch.eye(Mi, dtype=dtype)
+    want = _todays_predict_batch(KERNEL, theta, Xu, X, Lu, m, A)
+    with torch.set_grad_enabled(grad):
+        leaves = [t.detach().requires_grad_(grad) for t in (theta, m, A)]
+        tracing.start()
+        try:
+            got = svgp.svgp_predict_batch(KERNEL, leaves[0], Xu, X, Lu, leaves[1], leaves[2])
+        finally:
+            tracing.stop()
+    assert all(torch.equal(a.detach(), b) for a, b in zip(got, want))
+    names = [s.name for s in tracing.spans() if s.name.startswith("svgp.")]
+    assert names == ["svgp.solve", "svgp.var"]
+    if grad:
+        assert all(t.grad is None for t in leaves)
+        torch.autograd.grad(got[0].sum() + got[1].sum(), leaves)
+    else:
+        assert not got[0].requires_grad and not got[1].requires_grad
+
+
+def test_the_kernel_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    """``svgp_var_cuda`` on CPU tensors is ``svgp_var_reference`` bit for
+    bit and launches nothing; on a device with no kernel it raises rather
+    than falling back."""
+    g = torch.Generator().manual_seed(14)
+    Kux = torch.rand(M, 300, generator=g)
+    Lu = torch.tril(torch.rand(M, M, generator=g)) + M * torch.eye(M)
+    A = torch.tril(torch.rand(M, M, generator=g))
+    m, kxx = torch.randn(M, generator=g), torch.full((300,), 2.0)
+    launches = svgp_var.svgp_var_cuda.launches
+    got = svgp_var.svgp_var_cuda(Kux, Lu, A, m, kxx)
+    want = svgp_var.svgp_var_reference(Kux, Lu, A, m, kxx)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert svgp_var.svgp_var_cuda.launches == launches
+    meta = [t.to("meta") for t in (Kux, Lu, A, m, kxx)]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        svgp_var.svgp_var_cuda(*meta)
+
+
+def _wrapper_inputs(Mi=M, Bi=100, dtype=F32):
+    return [torch.zeros(Mi, Bi, dtype=dtype), torch.eye(Mi, dtype=dtype),
+            torch.eye(Mi, dtype=dtype), torch.zeros(Mi, dtype=dtype),
+            torch.ones(Bi, dtype=dtype)]
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("Lu float64", TypeError, "Lu is torch.float64"),
+    ("Kux float64", TypeError, "Kux is torch.float64"),
+    ("kxx float16", TypeError, "kxx is torch.float16"),
+    ("Kux transposed", ValueError, "Kux must be contiguous"),
+    ("A strided", ValueError, "A must be contiguous"),
+    ("Lu strided", ValueError, "Lu must be contiguous"),
+    ("m_white too long", ValueError, "m_white"),
+    ("kxx too short", ValueError, "kxx"),
+    ("Lu not square", ValueError, "Lu"),
+    ("Kux one-dimensional", ValueError, "must be"),
+    ("M above the maximum", ValueError, "outside 1..1024"),
+    ("not a tensor", TypeError, "must be a tensor"),
+])
+def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take(fault, error, match):
+    """The checks ``svgp_var_cuda`` makes on CUDA tensors before a launch
+    raise on a wrong dtype, layout or shape, so such a call fails instead
+    of falling back (held here on CPU tensors: the checks read no card)."""
+    Kux, Lu, A, m, kxx = _wrapper_inputs()
+    if fault == "Lu float64":
+        Lu = Lu.double()
+    elif fault == "Kux float64":
+        Kux = Kux.double()
+    elif fault == "kxx float16":
+        kxx = kxx.half()
+    elif fault == "Kux transposed":
+        Kux = torch.zeros(100, M).T
+    elif fault == "A strided":
+        A = torch.zeros(M, 2 * M)[:, ::2]
+    elif fault == "Lu strided":
+        Lu = torch.zeros(2 * M, M)[::2]
+    elif fault == "m_white too long":
+        m = torch.zeros(M + 1)
+    elif fault == "kxx too short":
+        kxx = torch.ones(99)
+    elif fault == "Lu not square":
+        Lu = torch.zeros(M, M + 1)
+    elif fault == "Kux one-dimensional":
+        Kux = torch.zeros(M)
+    elif fault == "M above the maximum":
+        Kux, Lu, A, m, kxx = _wrapper_inputs(svgp_var.SVGP_VAR_MAX_M + 1, 8)
+    elif fault == "not a tensor":
+        m = [0.0] * M
+    with pytest.raises(error, match=match):
+        svgp_var._check(Kux, Lu, A, m, kxx)
+    svgp_var._check(*_wrapper_inputs())
+    # Lu and Ã may be column-major, as torch.linalg.cholesky's factor is on a card
+    Kux, Lu, A, m, kxx = _wrapper_inputs()
+    svgp_var._check(Kux, torch.zeros(M, M).T, torch.zeros(M, M).T, m, kxx)
+    assert svgp_var._column_major(torch.zeros(M, M).T)
+    assert not svgp_var._column_major(torch.zeros(M, M))
+    assert not svgp_var._column_major(torch.zeros(1, 1).T)
+
+
+@pytest.mark.parametrize("Mi", [1, 30, 32, 66, 512, 1022])
+@pytest.mark.parametrize("given", ["row-major", "column-major"])
+@pytest.mark.parametrize("column_major", [True, False], ids=["Lu", "A"])
+def test_the_factors_are_laid_out_as_the_kernels_tensor_maps_read_them(Mi, given, column_major):
+    """``_laid_out`` gives Lu column-major and Ã row-major, ld floats from
+    one column (row) to the next with ld a multiple of 4, and the same
+    values; it hands back the tensor itself where it already lies so (the
+    card's Cholesky factor and Ã at M % 4 = 0), and copies only the other
+    layout or a ragged M, into ld = M rounded up to a multiple of 4."""
+    g = torch.Generator().manual_seed(Mi)
+    t = torch.randn(Mi, Mi, generator=g)
+    if given == "column-major":
+        t = t.T.contiguous().T
+    got, ld = svgp_var._laid_out(t, column_major)
+    assert torch.equal(got, t) and ld % 4 == 0 and ld >= Mi
+    rows = got.mT if column_major else got
+    assert rows.stride() == (ld, 1) and got.data_ptr() % 16 == 0
+    in_place = Mi % 4 == 0 and Mi > 1 and (given == "column-major") == column_major
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert ld == (Mi if in_place else -(-Mi // 4) * 4)

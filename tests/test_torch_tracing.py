@@ -338,13 +338,14 @@ def test_idle_gaps_go_to_the_innermost_span_and_launches_are_counted():
         "se_gram.launch": 0.001, "serve.matvec": 0.0015})
     assert serve_spans.launches(trace, scaled) == {
         "launch_spans": 1, "replay_spans": 0, "replayed_launches": 0, "launches": 1,
-        "kernel_records": 1}
+        "kernel_records": 1, "variance_kernel_records": 0}
 
 
 def test_replayed_calls_count_their_captured_launches_and_a_capture_none():
     """In the sub-window [1, 10] s: an eager call's launch span, a capture
     (its launch queued nothing) and two replays whose graph holds one Gram;
-    a replay after the sub-window is left out."""
+    a replay after the sub-window is left out. The SVGP variance kernel's
+    records (one a call, replays included) are counted beside them."""
     from portbench.trace import Trace
 
     def span(name, t, parent=None, attrs=None):
@@ -358,10 +359,13 @@ def test_replayed_calls_count_their_captured_launches_and_a_capture_none():
                span("serve.replay", 3.5, 2, {"launches": 1}),
                span("serve.predict", 4), span("serve.replay", 4, 7, {"launches": 1}),
                span("serve.replay", 11, None, {"launches": 1})]
-    trace = Trace((1.0, 10.0), [("se_gram_kernel", t, t + 0.1) for t in (2, 3.5, 4)], [])
+    kernels = [("se_gram_kernel", t, t + 0.1) for t in (2, 3.5, 4)]
+    kernels += [("void (anonymous namespace)::svgp_var_kernel<64>(float const*)", t + 0.1,
+                 t + 0.3) for t in (2, 3.5, 4)]
+    trace = Trace((1.0, 10.0), kernels, [])
     assert serve_spans.launches(trace, program) == {
         "launch_spans": 1, "replay_spans": 2, "replayed_launches": 2, "launches": 3,
-        "kernel_records": 3}
+        "kernel_records": 3, "variance_kernel_records": 3}
 
 
 def test_engagement_reads_the_graph_counters_since_a_start():
