@@ -197,9 +197,9 @@ def phase_device():
 
 def phase_build():
     say("phase 2/18 build: start")
-    from gaussianprocessnode_tpu_torch.ops import _build, se_gram
+    from gaussianprocessnode_tpu_torch.ops import _build
 
-    se_gram._kernel_fn()
+    _build.load_library()
     info = _build.build_log()
     ptxas = " | ".join(line.strip() for line in info["ptxas"].splitlines()
                        if "ptxas" in line)
@@ -1134,10 +1134,11 @@ def phase_toy(card):
       linesearch's own host reads;
     - one float32 epoch of each through the kernel, under torch.profiler,
       held to the plain float32 Gram on the card. The wrapper's count (set
-      to 0 just before, read just after) holds two launches per VMP pass
-      and, for the epoch's CUDA graph of the objective (Kuu and Kux), two
-      in its eager warm-up and two captured; the trace's kernel records
-      hold two per VMP pass, per warm-up and per replayed evaluation;
+      to 0 just before, read just after) is what the device ran: two
+      launches per VMP pass and, for the epoch's CUDA graph of the
+      objective (Kuu and Kux), two in its eager warm-up, none for the
+      capture and two per replayed evaluation; the trace's kernel records
+      hold as many;
     - one float64 toy-regression epoch under torch.profiler: device time
       by kernel group against the epoch's wall time;
     - the expected-Ψ point Gram with GH-21 and GenUT at the toy sizes in
@@ -1218,14 +1219,13 @@ def phase_toy(card):
         records = sum(n for k, (n, _) in kernels.items() if "se_gram" in k)
         th_p, fe_p, _ = fit(plain, *args32, epochs=1)
         check(se_gram_cuda.launches == launches, f"{name}: the plain Gram launched the kernel")
-        want = 4 + 4 * ck["graph_captures"]
-        want_records = 4 + 2 * (ck["graph_captures"] + ck["evaluations"])
+        want = want_records = 4 + 2 * (ck["graph_captures"] + ck["evaluations"])
         fe_lim, th_lim = TOY_F32_LIMITS[name]
         d32_th = float(torch.max(torch.abs(th_k - th_p) / torch.abs(th_p)))
         d32_fe = float(torch.max(torch.abs(fe_k - fe_p) / torch.abs(fe_p)))
         print(f"{name} float32, 1 epoch through the kernel: {f32_ms:.1f} ms (host clock, "
               f"profiler on); se_gram launches counted by its wrapper {launches} (expected "
-              f"{want}: 2 per VMP pass, 2 eager and 2 captured per CUDA graph, "
+              f"{want}: 2 per VMP pass, 2 per eager warm-up, 2 per replayed evaluation, "
               f"{ck['graph_captures']} graph); se_gram kernel records in the profiler trace "
               f"{records} (expected {want_records}, less at most {want_records // TOY_TRACE_LOSS} "
               f"lost by the trace: 2 per VMP pass, 2 per eager warm-up, 2 per evaluation, "
@@ -1887,13 +1887,17 @@ def gp_routes(kern, plain, dev, seed):
         return r, rp
 
     # the hyperparameter epochs: epoch 1 from the cold start, epoch 2 from the
-    # plain route's epoch-1 carry in both routes
+    # plain route's epoch-1 carry in both routes; L-BFGS counts by (epoch,
+    # kernel route)
     caps = {}
-    (thk, stk, fek), (thp, stp, fep) = counted(
-        "epoch_1", lambda k: _gp_hyperopt(s, k, s["theta0"], None, 1, caps))
+
+    def hyper(name, theta, state):
+        return lambda k: _gp_hyperopt(s, k, theta, state, 1,
+                                      caps.setdefault((name, k is kern), {}))
+
+    (thk, stk, fek), (thp, stp, fep) = counted("epoch_1", hyper("epoch_1", s["theta0"], None))
     diffs["epoch_1"] = dict(theta=_relmax(thk, thp), fe=_relmax(fek, fep), **_state_diff(stk, stp))
-    (thk, stk, fek), (thp, stp, fep) = counted(
-        "epoch_2", lambda k: _gp_hyperopt(s, k, thp, stp, 1, caps))
+    (thk, stk, fek), (thp, stp, fep) = counted("epoch_2", hyper("epoch_2", thp, stp))
     diffs["epoch_2"] = dict(theta=_relmax(thk, thp), fe=_relmax(fek, fep), **_state_diff(stk, stp))
     theta, S = thp, stp  # the shared θ and state from here on
 
@@ -1951,7 +1955,9 @@ def gp_routes(kern, plain, dev, seed):
     finite = (all(_finite_state(x) for x in (jac_k, jac_p, S, S_c))
               and bool(torch.isfinite(m_one).all()) and bool(torch.isfinite(mk).all()))
     return dict(diffs=diffs, theta=theta, state=S, launches=launches, setup=s, prior=prior,
-                chained=chained, finite=finite, graph_captures=caps.get("graph_captures", 0),
+                chained=chained, finite=finite,
+                graph_captures=sum(c.get("graph_captures", 0) for c in caps.values()),
+                lbfgs={name: caps[(name, True)] for name in ("epoch_1", "epoch_2")},
                 jacobi_state=jac_k)
 
 
@@ -2053,9 +2059,9 @@ def phase_gpssm(seed, card):
     torch.cuda.synchronize()
     total = se_gram_cuda.launches
     caps = res["lbfgs_graph_captures"]
-    # each M-step captures its objective once (an eager warm-up and the
-    # capture: Kuu and the point Gram each); the replays launch no Python
-    hyper = GP_EPOCHS * jacobi_launches(GP_E_SWEEPS) + 4 * caps
+    # each M-step captures its objective once: Kuu and the point Gram in its
+    # eager warm-up and in each replayed evaluation, none in the capture
+    hyper = GP_EPOCHS * jacobi_launches(GP_E_SWEEPS) + 2 * (caps + res["lbfgs_evaluations"])
     expect = hyper + jacobi_launches(GP_SMOOTH) + GP_T_TEST
     print(f"pendulum runner float32 ({GP_EPOCHS} epochs, T={GP_T}, M={GP_M}): hyperopt "
           f"{res['hyperopt_seconds']:.3f} s ({res['host_ms_per_epoch']:.1f} ms per epoch), "
@@ -2081,12 +2087,17 @@ def phase_gpssm(seed, card):
     routes_s = time.perf_counter() - t
     L, d = r["launches"], r["diffs"]
     T = GP_T
-    expect = {"epoch_1": jacobi_launches(GP_E_SWEEPS) + 4, "epoch_2": jacobi_launches(GP_E_SWEEPS) + 4,
-              "jacobi": jacobi_launches(GP_JACOBI), "jacobi_sweep": jacobi_launches(1),
-              "sequential": sequential_launches(GP_GS, T), "pit": pit_launches(GP_PIT, GP_POLISH),
-              "pit_sweep": pit_launches(1, 0), "control": jacobi_launches(GP_CTRL),
-              "control_sweep": jacobi_launches(1), "control_filter": GP_CTRL_TEST,
-              "filter": GP_T_TEST}
+    # an epoch's M-step: Kuu and the point Gram in its graph's eager warm-up
+    # and in each replayed evaluation, none in the capture
+    expect = {name: jacobi_launches(GP_E_SWEEPS) + 2 * (c.get("graph_captures", 0)
+                                                        + c.get("evaluations", 0))
+              for name, c in r["lbfgs"].items()}
+    expect.update({
+        "jacobi": jacobi_launches(GP_JACOBI), "jacobi_sweep": jacobi_launches(1),
+        "sequential": sequential_launches(GP_GS, T), "pit": pit_launches(GP_PIT, GP_POLISH),
+        "pit_sweep": pit_launches(1, 0), "control": jacobi_launches(GP_CTRL),
+        "control_sweep": jacobi_launches(1), "control_filter": GP_CTRL_TEST,
+        "filter": GP_T_TEST})
     for name, v in d.items():
         print(f"GPSSM {name} kernel vs plain: " + (f"{v:.3e}" if isinstance(v, float) else
               ", ".join(f"{k} {x:.3e}" for k, x in v.items())) + f"; launches {L.get(name)}"
@@ -3308,6 +3319,7 @@ def phase_headline(card):
 
 
 SVGP_M, SVGP_B = 512, 262_144  # the kin40k SVGP serving cell: 512 inducing inputs, 262,144 rows
+SVGP_REPLAYS = 3  # replays of the variance kernel's CallGraph
 
 
 def _svgp_var_gaps(out, inputs):
@@ -3332,11 +3344,15 @@ def phase_svgp_var(seed, z, card):
     (row-major), each read in place. One checked call, counted once by
     ``svgp_var_cuda.launches`` (zeroed first); its mean and variance within
     4× the plain float32 version's own distance from the float64 one, plus
-    1e-6, a limit the plain version with TF32 products must fail; then its
-    device time (a CUDA graph of 20 launches, twice), the plain route's
-    (cuBLAS trsm, sgemm, reductions: the library's) and the bound, 2M²B
-    FLOPs at the float32 FMA peak."""
+    1e-6, a limit the plain version with TF32 products must fail; the call
+    held as a ``CallGraph``: the capture counts nothing, each of
+    ``SVGP_REPLAYS`` replays counts one launch and answers bit for bit as
+    the checked call; then its device time (a CUDA graph of 20 launches,
+    twice, the counter restored around it), the plain route's (cuBLAS trsm,
+    sgemm, reductions: the library's) and the bound, 2M²B FLOPs at the
+    float32 FMA peak."""
     say("phase 18/18 SVGP variance kernel: start")
+    from gaussianprocessnode_tpu_torch.ops._build import CallGraph
     from gaussianprocessnode_tpu_torch.ops.kernels import softplus
     from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda, se_gram_reference
     from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_cuda, svgp_var_reference
@@ -3382,13 +3398,22 @@ def phase_svgp_var(seed, z, card):
     check(tm > lim_m or tv > lim_v, "the plain version with TF32 products passes the "
           "SVGP variance kernel's limit: it cannot tell float32 from TF32")
     with torch.no_grad():
+        graph = CallGraph(lambda k: svgp_var_cuda(k, *inputs[1:]), Kux)
+        captured = svgp_var_cuda.launches
+        same = all(all(torch.equal(a, b) for a, b in zip(graph(Kux), out))
+                   for _ in range(SVGP_REPLAYS))
+        replayed = svgp_var_cuda.launches - captured
         timed = svgp_var_cuda.launches
         device_runs = [cuda_graph_time_ms(lambda: svgp_var_cuda(*inputs), iters=20)
                        for _ in range(2)]
-        timing_launches = svgp_var_cuda.launches - timed
+        svgp_var_cuda.launches = timed  # the timing graphs are not the wrapper's count
         plain_ms = cuda_graph_time_ms(lambda: svgp_var_reference(*inputs), iters=5)
-    check(timing_launches == 2 * (3 + 20),
-          f"svgp_var_cuda counted {timing_launches} launches in two timed graphs of 20")
+    print(f"svgp_var as a CallGraph: capture counted {captured - 1}, {SVGP_REPLAYS} replays "
+          f"counted {replayed}, bit-equal to the checked call: {same}", flush=True)
+    check(captured == 1 and replayed == SVGP_REPLAYS and graph.launches == {"svgp_var_cuda": 1},
+          f"svgp_var_cuda counted {captured - 1} launches for a capture and {replayed} for "
+          f"{SVGP_REPLAYS} replays (expected 0 and {SVGP_REPLAYS})")
+    check(same, "a replayed SVGP variance call differs from the eager call")
     device_ms = min(device_runs)
     bound_ms = 2.0 * M * M * B / PEAK_F32_FLOP_PER_S * 1e3
     print(f"svgp_var {M}x{B}x{D}: device {device_runs} ms (CUDA graph of 20), bound "
@@ -3402,8 +3427,8 @@ def phase_svgp_var(seed, z, card):
         "source": "gaussianprocessnode_tpu_torch/ops/csrc/svgp_var.cu",
         "replaces": None,
         "tpu_kernel": None,
-        "launches": 1 + timing_launches,
-        "launches_by_path": {"checked_call": 1, "timing": timing_launches},
+        "launches": 1 + replayed,
+        "launches_by_path": {"checked_call": 1, "replays": replayed},
         "max_mean_gap": gm,
         "max_var_gap": gv,
         "limits": {"mean": lim_m, "var": lim_v},

@@ -44,6 +44,7 @@ import torch
 from ..dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from ..infer.batch_vmp import predict_probit
 from ..infer.minibatch import fit_banana, fit_banana_fast, init_banana_state
+from ..ops._build import load_library
 from ..ops.kernels import Kernel, invsoftplus, softplus
 from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
@@ -125,9 +126,7 @@ def run(epochs: int = 500, m_inducing: int = 500, batch_size: int = 200, seed: i
                                                  dtype, xu)
     kernel = Kernel("se", transform="softplus", use_kernel=True)
     if dev.type == "cuda":
-        from ..ops.se_gram import _kernel_fn
-
-        _kernel_fn()  # build and load the kernel before the clock starts
+        load_library()  # build and load the kernels before the clock starts
     trainer = fit_banana_fast if fast else fit_banana
     state0 = init_banana_state(kernel, theta0, Xu, prior_v, prior_w) if fast else None
 

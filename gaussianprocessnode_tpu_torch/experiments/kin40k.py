@@ -44,6 +44,7 @@ from ..dists import MvGaussianNat
 from ..infer.batch_vmp import predict_out
 from ..infer.minibatch import (KIN40K_BATCH_NS_ITERS, fit_kin40k, fit_kin40k_fast,
                                init_kin40k_fast_state)
+from ..ops._build import load_library
 from ..ops.kernels import Kernel, invsoftplus
 from ..ops.linalg import ir_solve, spd_inverse_ns, sym
 from ..ops.se_gram import se_gram_cuda
@@ -151,9 +152,7 @@ def run(epochs: int = 500, m_inducing: int = 600, batch_size: int = 500,
                                         dtype, xu)
     kernel = Kernel("se", transform="softplus", use_kernel=True)
     if dev.type == "cuda":
-        from ..ops.se_gram import _kernel_fn
-
-        _kernel_fn()  # build and load the kernel before the clock starts
+        load_library()  # build and load the kernels before the clock starts
 
     def train():
         if faithful:

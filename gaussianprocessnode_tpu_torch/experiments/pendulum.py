@@ -38,9 +38,9 @@ epoch's E-step), ``theta`` (raw) and ``theta_softplus``,
 ``lbfgs_evaluations``, ``host_reads`` (one per linesearch iteration) and
 ``lbfgs_graph_captures`` (on the card, one CUDA graph of the objective's
 value and gradient per M-step),
-``gram_launches`` (the SE Gram kernel's launches counted by its wrapper
-during the hyperparameter epochs: the eager ones and those captured into
-each M-step's CUDA graph, not the graph's replays) and ``device`` (the
+``gram_launches`` (the SE Gram kernel's launches the device ran during
+the hyperparameter epochs, as its wrapper counts them: the eager ones and
+those of each replay of an M-step's CUDA graph) and ``device`` (the
 card's name and power limit from nvidia-smi). ``--f32`` is the JAX
 runner's f32-first mode: every model input in float32, so every Gram goes
 through the hand-written CUDA kernel, the q(v) and Kuu factorisations
@@ -65,6 +65,7 @@ from ..infer.pit_gpssm import gpssm_vmp_pit
 from ..infer.training import lbfgs_solve
 from ..infer.ut_smoother import ut_smoother_vmp
 from ..objectives import grad_multi, neg_log_backwardmess_multi
+from ..ops._build import load_library
 from ..ops.kernels import Kernel, invsoftplus, softplus
 from ..ops.linalg import cholinv, sum_blocks_weighted, sym
 from ..ops.quadrature import SphericalRadial
@@ -178,9 +179,7 @@ def run(epochs: int = 150, n_iters: int = 25, adamax_steps: int = 100,
     M, D = Xu.shape[0], 2
     sr = SphericalRadial()
     if dev.type == "cuda" and dtype == torch.float32:
-        from ..ops.se_gram import _kernel_fn
-
-        _kernel_fn()  # build and load the kernel before the clock starts
+        load_library()  # build and load the kernels before the clock starts
 
     optimizer = opt_state = None
     if not use_lbfgs:

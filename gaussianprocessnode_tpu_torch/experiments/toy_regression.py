@@ -18,9 +18,9 @@ training, host clock between two ``torch.cuda.synchronize()`` calls),
 ``evaluations_per_lbfgs_step`` (the objective's value-and-gradient calls,
 the step's own included), ``host_reads_per_epoch`` (one per linesearch
 iteration: the trainer's only reads of the device), ``gram_launches`` (the
-SE Gram kernel's launches counted by its wrapper during training: the eager
-ones and those captured into each epoch's CUDA graph, not the graph's
-replays) and ``device`` (the card's name and power limit from
+SE Gram kernel's launches the device ran during training, as its wrapper
+counts them: the eager ones and those of each replay of an epoch's CUDA
+graph) and ``device`` (the card's name and power limit from
 nvidia-smi). ``--f32`` trains in float32, whose Grams go through the
 hand-written CUDA kernel; in float64 they take the plain route by dtype,
 as in the JAX package. ``--data reference`` reads the reference's
@@ -38,6 +38,7 @@ import torch
 from ..dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from ..infer.batch_vmp import predict_out
 from ..infer.training import fit_regression
+from ..ops._build import load_library
 from ..ops.kernels import Kernel, invsoftplus, softplus
 from ..ops.se_gram import se_gram_cuda
 from ..utils.datasets import toy_sinc, toy_sinc_reference
@@ -74,9 +75,7 @@ def run(epochs: int = 300, n_iters: int = 7, m_inducing: int = 20, data: str = "
     theta0, Xu, X, y, prior_v, prior_w = setup(ds, m_inducing, dev, dtype)
     kernel = Kernel("se", transform="softplus", use_kernel=True)
     if dev.type == "cuda" and dtype == torch.float32:
-        from ..ops.se_gram import _kernel_fn
-
-        _kernel_fn()  # build and load the kernel before the clock starts
+        load_library()  # build and load the kernels before the clock starts
     counts = {}
     synchronize(dev)
     se_gram_cuda.launches = 0

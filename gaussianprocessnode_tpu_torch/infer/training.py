@@ -47,6 +47,7 @@ import torch
 
 from ..dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from ..objectives import neg_log_backwardmess_fast
+from ..ops._build import CallGraph
 from ..ops.linalg import rv_chol_upper
 from .batch_vmp import classification_vmp, regression_vmp
 
@@ -67,51 +68,30 @@ def _add(counts, key, n=1):
         counts[key] = counts.get(key, 0) + n
 
 
-def _value_and_grad(objective, x, counts):
+def _value_and_grad(objective, x):
     th = x.detach().requires_grad_(True)
     with torch.enable_grad():
         v = objective(th)
         (g,) = torch.autograd.grad(v, th)
-    _add(counts, "evaluations")
     return v.detach(), g
 
 
 class _ValueAndGrad:
     """The objective's value and gradient at x; on a CUDA tensor, by one CUDA
-    graph of the whole evaluation, captured at construction (after one
-    eager warm-up on a side stream, which creates the libraries' handles and
-    workspaces; ``counts["graph_captures"]``) and replayed for each x copied
-    into its static input. A replay runs no Python, so the kernels' wrappers
-    count the launches they make while the graph is captured, not those the
-    replays make: a profiler trace counts those."""
+    graph of the whole evaluation (``ops._build.CallGraph``), captured at
+    construction after one eager warm-up (``counts["graph_captures"]``) and
+    replayed for each x."""
 
     def __init__(self, objective, x, counts):
-        self.objective, self.counts, self.graph = objective, counts, None
-        if x.device.type != "cuda":
-            return
-        self.x = x.detach().clone()
-        # capture on a side stream, as torch.cuda.graph does, but without its
-        # device synchronisation, garbage collection and cache release
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            _value_and_grad(objective, self.x, None)
-            self.graph.capture_begin()
-            try:
-                self.v, self.g = _value_and_grad(objective, self.x, None)
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
-        _add(counts, "graph_captures")
+        self.counts = counts
+        self.call = lambda t: _value_and_grad(objective, t)
+        if x.device.type == "cuda":
+            self.call = CallGraph(self.call, x, warmup=True)
+            _add(counts, "graph_captures")
 
     def __call__(self, x):
-        if self.graph is None:
-            return _value_and_grad(self.objective, x, self.counts)
-        self.x.copy_(x)
-        self.graph.replay()
         _add(self.counts, "evaluations")
-        return self.v.clone(), self.g.clone()
+        return self.call(x)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,9 @@ Counterpart of ``gaussianprocessnode_tpu/ops/pallas_gram.py``: its Pallas
 kernel ``_gram_kernel`` and the wrappers ``se_gram_pallas`` /
 ``se_gram_auto`` / ``se_gram_fused`` become
 
-- ``se_gram_cuda``: launches ``ops/csrc/se_gram.cu`` for CUDA tensors (the
-  kernel or an error, never a fallback), and takes the plain version for
-  CPU tensors;
+- ``se_gram_cuda``: launches ``ops/csrc/se_gram.cu`` (through
+  ``ops/_build.py``) for CUDA tensors: the kernel or an error, never a
+  fallback;
 - ``se_gram_reference``: the plain PyTorch version, the same expanded-form
   arithmetic; the CPU path, and the yardstick of correctness on the card;
 - ``se_gram_auto``: the kernel when Z and X are both float32 on the card
@@ -22,12 +22,12 @@ and an exp per output; ``se_gram.cu`` says what bounds it and what its
 design does about that.
 """
 
-import contextlib
-import ctypes
+from ctypes import c_int, c_void_p
 
 import torch
 
 from ..utils import tracing
+from . import _build
 from . import kernels as _k
 
 __all__ = ["SE_GRAM_MAX_D", "se_gram_cuda", "se_gram_reference", "se_gram_route",
@@ -36,29 +36,6 @@ __all__ = ["SE_GRAM_MAX_D", "se_gram_cuda", "se_gram_reference", "se_gram_route"
 # widest input the kernel takes (se_gram.cu: kMaxD); the chip check holds the
 # kernel against its plain version at this width
 SE_GRAM_MAX_D = 256
-
-_fn = None
-
-
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-
-        lib = load_library()
-        f = lib.se_gram_f32
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        lib.se_gram_error_string.argtypes = [ctypes.c_int]
-        lib.se_gram_error_string.restype = ctypes.c_char_p
-        lib.se_gram_max_d.argtypes = []
-        lib.se_gram_max_d.restype = ctypes.c_int
-        if lib.se_gram_max_d() != SE_GRAM_MAX_D:
-            raise RuntimeError("se_gram.cu kMaxD and SE_GRAM_MAX_D disagree")
-        _fn = (f, lib.se_gram_error_string)
-    return _fn
 
 
 def se_gram_reference(Z, X, variance, lengthscales):
@@ -94,38 +71,25 @@ def _check_cuda(Z, X, variance, lengthscales):
 
 
 def se_gram_cuda(Z, X, variance, lengthscales):
-    """SE Gram K(Z, X), (M, N). On CUDA tensors: one launch of the kernel on
+    """SE Gram K(Z, X), (M, N), of CUDA tensors: one launch of the kernel on
     the current stream, float32, ℓ and σ² read from device memory (no host
-    sync). On CPU tensors: ``se_gram_reference``. Counts its launches in
-    ``se_gram_cuda.launches``."""
-    if Z.device.type == "cpu":
-        return se_gram_reference(Z, X, variance, lengthscales)
+    sync); any other device raises. Counts its launches in
+    ``se_gram_cuda.launches`` (``ops/_build.py``)."""
     if Z.device.type != "cuda":
         raise ValueError(f"se_gram_cuda: no kernel for device {Z.device}")
     _check_cuda(Z, X, variance, lengthscales)
-    fn, err_str = _kernel_fn()
     M, N = Z.shape[0], X.shape[0]
     K = torch.empty((M, N), dtype=torch.float32, device=Z.device)
     if M == 0 or N == 0:
         return K
-    # the library launches on the calling thread's current device: make it
-    # Z's (entering the context only when needed keeps the per-launch host
-    # cost down)
     with tracing.span("se_gram.launch"):
-        on_current = Z.device.index == torch.cuda.current_device()
-        with contextlib.nullcontext() if on_current else torch.cuda.device(Z.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(Z.data_ptr(), X.data_ptr(), lengthscales.data_ptr(),
-                    lengthscales.numel(), variance.data_ptr(), K.data_ptr(),
-                    M, N, Z.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"se_gram_cuda: launch failed ({rc}): "
-                           f"{err_str(rc).decode()}")
-    se_gram_cuda.launches += 1
+        _launch(Z.device, Z.data_ptr(), X.data_ptr(), lengthscales.data_ptr(),
+                lengthscales.numel(), variance.data_ptr(), K.data_ptr(), M, N, Z.shape[1])
     return K
 
 
-se_gram_cuda.launches = 0
+_launch = _build.EntryPoint("se_gram", [c_void_p] * 3 + [c_int] + [c_void_p] * 2 + [c_int] * 3,
+                            se_gram_cuda, ("max_d", SE_GRAM_MAX_D))
 
 
 def se_gram_route(device, z_dtype, x_dtype=None) -> str:

@@ -7,9 +7,9 @@ column:
 
     Y = Lu⁻¹K,   mean = Yᵀm̃,   var = max(k(x, x) − ‖y‖² + ‖Ãᵀy‖², 1e-12)
 
-- ``svgp_var_cuda``: launches ``ops/csrc/svgp_var.cu`` for CUDA tensors (the
-  kernel or an error, never a fallback), and takes the plain version for
-  CPU tensors;
+- ``svgp_var_cuda``: launches ``ops/csrc/svgp_var.cu`` (through
+  ``ops/_build.py``) for CUDA tensors: the kernel or an error, never a
+  fallback;
 - ``svgp_var_reference``: the plain version: a triangular solve, the mean as
   a mat-vec, a product with Ãᵀ and the sums of squares, each a PyTorch
   call and differentiable; the CPU path, and the yardstick of correctness
@@ -22,39 +22,18 @@ and the product to XLA); ``svgp_var.cu`` says what bounds the kernel and
 what its design does about that.
 """
 
-import contextlib
-import ctypes
+from ctypes import c_int, c_void_p
 
 import torch
 
 from ..utils import tracing
+from . import _build
 from .linalg import tri_solve_lower
 
 __all__ = ["SVGP_VAR_MAX_M", "svgp_var_cuda", "svgp_var_reference", "svgp_var_route"]
 
 # the most inducing inputs the kernel takes (svgp_var.cu: kMaxM)
 SVGP_VAR_MAX_M = 1024
-
-_fn = None
-
-
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-
-        lib = load_library()
-        f = lib.svgp_var_f32
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        lib.svgp_var_error_string.argtypes = [ctypes.c_int]
-        lib.svgp_var_error_string.restype = ctypes.c_char_p
-        lib.svgp_var_max_m.argtypes = []
-        lib.svgp_var_max_m.restype = ctypes.c_int
-        if lib.svgp_var_max_m() != SVGP_VAR_MAX_M:
-            raise RuntimeError("svgp_var.cu kMaxM and SVGP_VAR_MAX_M disagree")
-        _fn = (f, lib.svgp_var_error_string)
-    return _fn
 
 
 def svgp_var_reference(Kux, Lu, A, m_white, kxx):
@@ -140,35 +119,26 @@ def _check(Kux, Lu, A, m_white, kxx):
 
 
 def svgp_var_cuda(Kux, Lu, A, m_white, kxx):
-    """(mean, var), each (B,). On CUDA tensors: one launch of the kernel on
+    """(mean, var), each (B,), of CUDA tensors: one launch of the kernel on
     the current stream, float32, reading Kux as the Gram kernel writes it
     ((M, B), row-major) and the lower triangles of Lu and Ã, Lu column-major
     and Ã row-major (:func:`_laid_out`: no copy for the handle's factors
     at M % 4 = 0); nothing but the two outputs is written, and no host
-    sync. On CPU tensors: ``svgp_var_reference``. Counts its launches in
-    ``svgp_var_cuda.launches`` (a CUDA graph's replay re-runs its captured
-    launch without counting it)."""
-    if Kux.device.type == "cpu":
-        return svgp_var_reference(Kux, Lu, A, m_white, kxx)
+    sync; any other device raises. Counts its launches in
+    ``svgp_var_cuda.launches`` (``ops/_build.py``)."""
     if Kux.device.type != "cuda":
         raise ValueError(f"svgp_var_cuda: no kernel for device {Kux.device}")
     _check(Kux, Lu, A, m_white, kxx)
-    fn, err_str = _kernel_fn()
     M, B = Kux.shape
     mean = torch.empty(B, dtype=torch.float32, device=Kux.device)
     var = torch.empty(B, dtype=torch.float32, device=Kux.device)
     if B == 0:
         return mean, var
-    on_current = Kux.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if on_current else torch.cuda.device(Kux.device):
-        (Lu, ld_l), (A, ld_a) = _laid_out(Lu, True), _laid_out(A, False)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(Kux.data_ptr(), Lu.data_ptr(), A.data_ptr(), m_white.data_ptr(),
-                kxx.data_ptr(), mean.data_ptr(), var.data_ptr(), M, B, ld_l, ld_a, stream)
-    if rc != 0:
-        raise RuntimeError(f"svgp_var_cuda: launch failed ({rc}): {err_str(rc).decode()}")
-    svgp_var_cuda.launches += 1
+    (Lu, ld_l), (A, ld_a) = _laid_out(Lu, True), _laid_out(A, False)
+    _launch(Kux.device, Kux.data_ptr(), Lu.data_ptr(), A.data_ptr(), m_white.data_ptr(),
+            kxx.data_ptr(), mean.data_ptr(), var.data_ptr(), M, B, ld_l, ld_a)
     return mean, var
 
 
-svgp_var_cuda.launches = 0
+_launch = _build.EntryPoint("svgp_var", [c_void_p] * 7 + [c_int] * 4, svgp_var_cuda,
+                            ("max_m", SVGP_VAR_MAX_M))

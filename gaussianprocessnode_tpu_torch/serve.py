@@ -35,8 +35,8 @@ from .dists import GammaShapeRate, MvGaussianNat, gamma_mean
 from .infer.batch_vmp import predict_out, predict_probit
 from .infer.chain_smoother import filter_frozen, filter_stream
 from .infer.svgp import SVGPParams, svgp_factors, svgp_predict_batch
+from .ops._build import CallGraph
 from .ops.linalg import ir_solve, spd_inverse_ns, sym
-from .ops.se_gram import se_gram_cuda
 from .parallel.comm import rank_slice
 from .utils import tracing
 from .utils.profiling import synchronize
@@ -47,6 +47,10 @@ __all__ = ["SGPRegressor", "SGPClassifier", "SVGPRegressor", "GPSSMFilter", "Gra
 # graphs a handle keeps: each holds a private memory pool the size of its
 # call's Gram (629 MB at 600 × 262,144)
 GRAPH_SLOTS = 4
+# keys a handle's cache remembers (a key called once, a key whose capture
+# raised, a graph's), the least recently used forgotten beyond them
+CACHE_KEYS = 64
+_SEEN, _EAGER = "seen once", "eager"
 
 # the graph caches' engagement over the process: graphs captured, calls
 # replayed, calls a cache admitted but ran eagerly (a key's first call, a
@@ -74,42 +78,6 @@ def _recover_mu_v(nat: MvGaussianNat, ns_iters: int = 60, ir_rounds: int = 4):
     return ir_solve(prec, nat.xi, cov, rounds=ir_rounds)
 
 
-class _CallGraph:
-    """One handle call held as a CUDA graph. Captured on a side stream from
-    ``call(x)``, x a private copy of the input; a later call copies its
-    input into x, replays, and returns clones of the outputs, so what it
-    returns never shares memory with the graph or with another call's.
-    ``launches``: the Gram kernels the capture queued, which each replay
-    runs; the capture's own count is taken back from
-    ``se_gram_cuda.launches`` (nothing ran), a replay adds it."""
-
-    def __init__(self, call, X):
-        self.x = X.clone(memory_format=torch.contiguous_format)
-        side = torch.cuda.Stream(X.device)
-        side.wait_stream(torch.cuda.current_stream(X.device))
-        self.graph = torch.cuda.CUDAGraph()
-        before = se_gram_cuda.launches
-        try:
-            with torch.cuda.stream(side):
-                self.graph.capture_begin()
-                try:
-                    self.out = call(self.x)
-                finally:
-                    self.graph.capture_end()
-        finally:
-            self.launches = se_gram_cuda.launches - before
-            se_gram_cuda.launches = before
-        torch.cuda.current_stream(X.device).wait_stream(side)
-
-    def __call__(self, X):
-        self.x.copy_(X)
-        self.graph.replay()
-        se_gram_cuda.launches += self.launches
-        if isinstance(self.out, tuple):
-            return tuple(o.clone() for o in self.out)
-        return self.out.clone()
-
-
 def _capturable(X) -> bool:
     """A call on ``X`` may be graphed: a CUDA tensor, gradients off, and the
     current stream not already capturing (a handle called inside another
@@ -124,20 +92,25 @@ class GraphCache:
     or ``svgp_predict_batch``, looked up at call time) and the input's
     shape, dtype and device. A key's first call runs eagerly (the warm-up that
     creates the libraries' handles and workspaces); its second captures
-    (``capture(call, X)``, a :class:`_CallGraph`) and answers by the
-    replay; later calls replay. At most ``GRAPH_SLOTS`` graphs are kept,
-    the least recently used evicted. A capture that raises leaves its key
-    eager for the life of the cache. Calls ``graphable`` refuses (CPU
-    tensors, gradients on, inside another capture) run eagerly and are not
-    counted. Engagement is counted in :data:`graph_counts`. A graph's
-    replays share its buffers, so one handle's calls come from one thread,
-    as a server's request loop makes them."""
+    (``capture(call, X)``, a ``CallGraph``) and answers by the replay;
+    later calls replay. A capture that raises leaves its key eager.
+    ``states`` maps at most ``CACHE_KEYS`` keys, least recently used first,
+    to ``_SEEN``, ``_EAGER`` or a graph; at most ``GRAPH_SLOTS`` are
+    graphs, the least recently used evicted to ``_SEEN``. Calls
+    ``graphable`` refuses (CPU tensors, gradients on, inside another
+    capture) run eagerly and are not counted. Engagement is counted in
+    :data:`graph_counts`. A graph's replays share its buffers, so one
+    handle's calls come from one thread, as a server's request loop makes
+    them."""
 
-    def __init__(self, capture=_CallGraph, graphable=_capturable):
+    def __init__(self, capture=CallGraph, graphable=_capturable):
         self.capture, self.graphable = capture, graphable
-        self.graphs = OrderedDict()  # key → captured call, least recently used first
-        self.warm = set()            # keys called once
-        self.eager = set()           # keys whose capture raised
+        self.states = OrderedDict()
+
+    @property
+    def graphs(self) -> dict:
+        """The captured calls by key, least recently used first."""
+        return {k: s for k, s in self.states.items() if s is not _SEEN and s is not _EAGER}
 
     def __call__(self, fn, call, X):
         """``call(X)``, or its graph's replay; ``fn`` is the function
@@ -145,30 +118,33 @@ class GraphCache:
         if not self.graphable(X):
             return call(X)
         key = (fn, tuple(X.shape), X.dtype, X.device)
-        graph = self.graphs.get(key)
-        if graph is None:
-            if key not in self.warm or key in self.eager:
-                self.warm.add(key)
-                graph_counts["eager"] += 1
-                return call(X)
-            if len(self.graphs) >= GRAPH_SLOTS:
-                self.graphs.popitem(last=False)
+        state = self.states.get(key)
+        if state is None or state is _EAGER:
+            self.states[key] = state or _SEEN
+            self.states.move_to_end(key)
+            if len(self.states) > CACHE_KEYS:
+                self.states.popitem(last=False)
+            graph_counts["eager"] += 1
+            return call(X)
+        self.states.move_to_end(key)
+        if state is _SEEN:
+            graphs = list(self.graphs)
+            if len(graphs) >= GRAPH_SLOTS:
+                self.states[graphs[0]] = _SEEN
             try:
                 with tracing.span("serve.capture"):
-                    graph = self.capture(call, X)
+                    state = self.capture(call, X)
             except RuntimeError:  # an operation the capture forbids, such as a sync
-                self.eager.add(key)
+                self.states[key] = _EAGER
                 graph_counts["fallbacks"] += 1
                 graph_counts["eager"] += 1
                 return call(X)
             graph_counts["captures"] += 1
-            self.graphs[key] = graph
-        else:
-            self.graphs.move_to_end(key)
+            self.states[key] = state
         graph_counts["replays"] += 1
         with tracing.span("serve.replay"):
-            tracing.attrs(launches=graph.launches)
-            return graph(X)
+            tracing.attrs(launches=state.launches)
+            return state(X)
 
 
 def _served(handle, out, X_test, *state):

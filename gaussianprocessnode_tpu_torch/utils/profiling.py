@@ -60,6 +60,9 @@ def cuda_graph_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     around one replay. The Python and launch cost of each call is not in
     the figure. Outputs that ``fn`` allocates come from the graph's private
     pool, so successive calls inside the graph may write the same memory.
+    It counts no launches as ``ops._build.CallGraph`` does: a kernel
+    wrapper counts the warm-up and the captured calls, not the replays, so
+    a caller that keeps a launch count restores it around this function.
     Raises without a CUDA card: there is no device time to give."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_graph_time_ms needs a CUDA card")

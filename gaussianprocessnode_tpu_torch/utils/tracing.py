@@ -49,8 +49,9 @@ The program's spans (names as the benchmark's layers read them):
   (``serve.GraphCache``; the spans above, inside it, queue work that runs
   only in the replays);
 - ``serve.replay``: a handle call answered by its graph's replay (input
-  copy, replay, output clones; attribute ``launches``, the Gram kernels
-  the replay runs, which record no ``se_gram.launch``);
+  copy, replay, output clones; attribute ``launches``, {kernel wrapper:
+  launches} the replay runs, ``ops._build.CallGraph.launches``, which
+  record no ``se_gram.launch`` or ``svgp.fused``);
 - ``serve.from_natural``: μ_v's recovery when a handle is built;
 - ``serve.from_svgp``: an SVGP handle's set-up (Kuu's factor and Ã in
   float64);

@@ -11,8 +11,9 @@ warm-up calls capture the handle's graph) and prints one JSON line:
 - each step of a call timed alone on the host's clock between two device
   synchronizations, median µs over ``--calls`` calls: the pool lookup,
   ``as_tensor``, ``no_grad``, the capture check, the cache's key, the
-  input copy, ``replay()``, one output clone, the graph's part and a whole
-  call;
+  input copy, ``replay()``, one output clone, the graph's part (a
+  ``CallGraph`` call: the copy, the replay, the launch counts, the clones)
+  and a whole call;
 - device µs by CUDA events (median of 200): the replay alone and a whole
   call with its host lead; the closed loop's µs a call (call, synchronize);
 - ``api_us``: count and mean host µs of each CUDA runtime call and ATen

@@ -31,12 +31,11 @@ profiler's. It writes both kinds, with ``parent`` and ``request``, to
   and idle seconds by that label and by the innermost span open through
   each part of a gap;
 - ``launches``: the Gram launches queued in the sub-window (eager calls'
-  ``se_gram.launch`` spans, and each ``serve.replay`` span's captured
-  launches) against the trace's ``se_gram_kernel`` records, and the
-  trace's ``svgp_var_kernel`` records (one per SVGP call, replays
-  included) with ``svgp_var_launches``, the variance kernel's launches
-  from Python over the run (``svgp_var_cuda.launches``: eager calls and
-  captures; a replay re-runs its captured launch);
+  ``se_gram.launch`` spans, and each ``serve.replay`` span's replayed
+  Gram launches) against the trace's ``se_gram_kernel`` records, and the
+  SVGP variance kernel's (eager calls' ``svgp.fused`` spans and the
+  replays' launches of it, ``svgp_var_launches``) against its
+  ``svgp_var_kernel`` records;
 - ``gc``: the collections during the window, by generation;
 - ``graphs``: the serving handles' graph engagement over the run, set-up
   included (``serve.graph_counts``: captures, replays, eager calls,
@@ -56,6 +55,7 @@ import argparse  # noqa: E402
 import bisect  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+from collections import Counter  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -228,20 +228,24 @@ def _captured(program) -> set:
 
 
 def launches(trace, program):
-    """The Gram kernels the host queued in the sub-window against the
-    trace's ``se_gram_kernel`` records: ``se_gram.launch`` spans of eager
-    calls (a launch inside a ``serve.capture`` queues nothing), and for each
-    ``serve.replay`` span the launches its graph's capture made (its
-    ``launches`` attribute); ``launches`` is their sum."""
+    """The kernels the host queued in the sub-window against the trace's
+    records of them. Eager calls queue one Gram per ``se_gram.launch`` span
+    and one variance kernel per ``svgp.fused`` span (a launch inside a
+    ``serve.capture`` queues nothing); each ``serve.replay`` span's
+    ``launches`` attribute holds the launches its graph replays, by kernel
+    wrapper. ``launches`` sums the Gram's, ``svgp_var_launches`` the
+    variance kernel's."""
     lo, hi = trace.window
     captured = _captured(program)
     inside = [(i, s) for i, s in enumerate(program) if lo <= s.start_ns / 1e9 <= hi]
-    spans = sum(1 for i, s in inside if s.name == "se_gram.launch" and i not in captured)
-    replays = [s for _, s in inside if s.name == "serve.replay"]
-    replayed = sum((s.attrs or {}).get("launches", 0) for s in replays)
-    return {"launch_spans": spans, "replay_spans": len(replays),
-            "replayed_launches": replayed, "launches": spans + replayed,
+    eager = Counter(s.name for i, s in inside if i not in captured)
+    replays = [(s.attrs or {}).get("launches", {}) for _, s in inside if s.name == "serve.replay"]
+    replayed = sum(r.get("se_gram_cuda", 0) for r in replays)
+    return {"launch_spans": eager["se_gram.launch"], "replay_spans": len(replays),
+            "replayed_launches": replayed, "launches": eager["se_gram.launch"] + replayed,
             "kernel_records": trace.kernel_time("se_gram_kernel")[0],
+            "svgp_var_launches": eager["svgp.fused"] + sum(r.get("svgp_var_cuda", 0)
+                                                           for r in replays),
             "variance_kernel_records": trace.kernel_time("svgp_var_kernel")[0]}
 
 
@@ -314,9 +318,8 @@ def engagement(before: dict) -> dict:
 
 def report(cell, seed, seconds, **run_cell_args) -> dict:
     from gaussianprocessnode_tpu_torch import serve
-    from gaussianprocessnode_tpu_torch.ops.svgp_var import svgp_var_cuda
 
-    counts, fused = dict(serve.graph_counts), svgp_var_cuda.launches
+    counts = dict(serve.graph_counts)
     result, program, trace, bench_spans = traced_run(cell, seed, seconds, **run_cell_args)
     write_spans(OUT / f"spans-{cell}-{seed}.jsonl", program, bench_spans)
     window_ns = (int(trace.window[0] * 1e9), int(trace.window[1] * 1e9))
@@ -324,8 +327,7 @@ def report(cell, seed, seconds, **run_cell_args) -> dict:
             "calls": per_call(program, window_calls(program, bench_spans, window_ns)),
             "setup": setup_part(program, bench_spans, T0_NS),
             "idle": labelled(trace, program),
-            "launches": {**launches(trace, program),
-                         "svgp_var_launches": svgp_var_cuda.launches - fused},
+            "launches": launches(trace, program),
             "gc": gc_during(program, bench_spans),
             "graphs": engagement(counts),
             "svgp_stages": svgp_stages(program),

@@ -7,9 +7,11 @@ The JAX Pallas kernel runs through the Pallas interpreter on the CPU, as
 tests/test_sharding.py runs it. Tolerances are stated per test.
 """
 
+import ctypes
 import re
 import stat
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -54,15 +56,6 @@ def test_reference_matches_pallas_kernel_interpreted(M, N, D, ard):
                                torch.tensor(var), torch.as_tensor(ls))
     assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
-
-
-def test_wrapper_on_cpu_tensors_is_the_plain_version():
-    Z, X, var, ls = _case(1, 20, 33, 4, True)
-    args = (torch.as_tensor(Z), torch.as_tensor(X), torch.tensor(var),
-            torch.as_tensor(ls))
-    before = sg.se_gram_cuda.launches
-    assert torch.equal(sg.se_gram_cuda(*args), sg.se_gram_reference(*args))
-    assert sg.se_gram_cuda.launches == before  # no kernel launched
 
 
 @pytest.mark.parametrize("device,dtype,route", [
@@ -116,8 +109,8 @@ def test_reference_matches_jax_se_gram(dtype):
     npd = np.float64 if dtype == torch.float64 else np.float32
     want = np.asarray(pg.se_gram_auto(jnp.asarray(Z, npd), jnp.asarray(X, npd),
                                       jnp.asarray(var, npd), jnp.asarray(ls, npd)))
-    got = sg.se_gram_cuda(torch.as_tensor(Z, dtype=dtype), torch.as_tensor(X, dtype=dtype),
-                          torch.tensor(var, dtype=dtype), torch.as_tensor(ls, dtype=dtype))
+    got = sg.se_gram_reference(torch.as_tensor(Z, dtype=dtype), torch.as_tensor(X, dtype=dtype),
+                               torch.tensor(var, dtype=dtype), torch.as_tensor(ls, dtype=dtype))
     if dtype == torch.float64:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
     else:
@@ -220,13 +213,17 @@ def test_cuda_input_checks_raise(case, exc):
         sg._check_cuda(Z, X, var, ls)
 
 
-def test_no_fallback_for_other_devices():
-    """Only CPU tensors take the plain version; any other device gets the
-    kernel or an error."""
-    Z = torch.empty((4, 3), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        sg.se_gram_cuda(Z, Z, torch.empty((), device="meta"),
-                        torch.empty((3,), device="meta"))
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_no_fallback_for_other_devices(device):
+    """The wrapper gives the kernel or an error, never the plain version:
+    tensors on any device but a CUDA card raise before a launch (the route
+    sends them to the plain version before the call)."""
+    Z, X, var, ls = _case(1, 20, 33, 4, True)
+    args = [torch.as_tensor(a).to(device) for a in (Z, X, var, ls)]
+    before = sg.se_gram_cuda.launches
+    with pytest.raises(ValueError, match=f"no kernel for device {device}"):
+        sg.se_gram_cuda(*args)
+    assert sg.se_gram_cuda.launches == before
 
 
 def test_source_cap_matches_wrapper():
@@ -263,6 +260,72 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
     assert d0 == _build._digest(srcs)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest(srcs) != d0
+
+
+class _Library:
+    """A stand-in for the kernel library: ``demo_f32`` records its
+    arguments and returns the next code of ``codes``."""
+
+    def __init__(self, codes, max_n=8):
+        self.calls, self.codes = [], list(codes)
+        self.demo_f32 = lambda *args: self.calls.append(args) or self.codes.pop(0)
+        self.demo_error_string = lambda code: f"error {code}".encode()
+        self.demo_max_n = lambda: max_n
+
+
+def _stand_in_card(monkeypatch, lib):
+    """``lib`` as the loaded library (``lib.loads`` counts the loads) and
+    card 0 as the current device, its current stream 77."""
+    lib.loads = 0
+
+    def load():
+        lib.loads += 1
+        return lib
+
+    monkeypatch.setattr(_build, "load_library", load)
+    monkeypatch.setattr(_build, "_counted", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=77))
+
+
+def test_entry_point_binds_once_raises_with_the_library_text_and_counts(monkeypatch):
+    """The launch path of ``ops/_build.py`` on a stand-in library: the entry
+    point is bound once, with its argtypes and the stream's after them; a
+    launch passes its arguments and the current stream; a nonzero return
+    code raises with the library's error string and counts nothing; each
+    launch that returns 0 counts one in the wrapper's ``launches``."""
+    lib = _Library([0, 700, 0])
+    _stand_in_card(monkeypatch, lib)
+
+    def wrapper():
+        pass
+
+    launch = _build.EntryPoint("demo", [ctypes.c_int], wrapper, ("max_n", 8))
+    assert wrapper.launches == 0 and _build._counted == {"wrapper": wrapper}
+    card = torch.device("cuda", 0)
+    launch(card, 5)
+    assert lib.demo_f32.argtypes == [ctypes.c_int, ctypes.c_void_p]
+    assert lib.demo_f32.restype is ctypes.c_int
+    with pytest.raises(RuntimeError, match=r"wrapper: launch failed \(700\): error 700"):
+        launch(card, 6)
+    launch(card, 7)
+    assert lib.calls == [(5, 77), (6, 77), (7, 77)] and wrapper.launches == 2
+    assert lib.loads == 1
+
+
+def test_entry_point_refuses_a_library_whose_limit_differs(monkeypatch):
+    """A library built from sources whose limit differs from the wrapper's
+    raises before any launch."""
+    lib = _Library([0], max_n=4)
+    _stand_in_card(monkeypatch, lib)
+
+    def wrapper():
+        pass
+
+    launch = _build.EntryPoint("demo", [], wrapper, ("max_n", 8))
+    with pytest.raises(RuntimeError, match="demo.cu's max_n 4 and the wrapper's 8 disagree"):
+        launch(torch.device("cuda", 0))
+    assert lib.calls == [] and wrapper.launches == 0
 
 
 def _rn32(x):

@@ -1,14 +1,19 @@
-"""The serving handles' graph cache (``serve.GraphCache``) on the CPU.
+"""The serving handles' graph cache (``serve.GraphCache``) and the capture
+helper (``ops._build.CallGraph``) on the CPU.
 
-Its policy runs without CUDA: a stand-in for the capture (a subclass of
-``serve._CallGraph`` whose "graph" recomputes the captured call into its
-static outputs) keeps the real replay path (input copy, replay, output
-clones), and a ``graphable`` that admits CPU tensors lets the cache's key,
-warm-up, eviction and fallback run here. The card tests in
-``tests/test_torch_gpu.py`` hold real captures to eager calls.
+The policy runs without CUDA: a stand-in for the capture (a subclass of
+``CallGraph`` with no side stream, whose "graph" reruns the captured call
+into its static outputs and, as a replay runs no Python, leaves every
+launch counter as it was) keeps the helper's replay path (input copy,
+replay, launch accounting, output clones), and a ``graphable`` that admits
+CPU tensors lets the cache's key, warm-up, eviction and fallback run here.
+The card tests in ``tests/test_torch_gpu.py`` hold real captures to eager
+calls.
 """
 
+import contextlib
 import dataclasses
+import gc
 from types import SimpleNamespace
 
 import pytest
@@ -16,35 +21,40 @@ import torch
 
 from gaussianprocessnode_tpu_torch import serve
 from gaussianprocessnode_tpu_torch.dists import GammaShapeRate, MvGaussianNat
+from gaussianprocessnode_tpu_torch.ops import _build
 from gaussianprocessnode_tpu_torch.ops.kernels import Kernel
-from gaussianprocessnode_tpu_torch.ops.se_gram import se_gram_cuda
 from gaussianprocessnode_tpu_torch.utils import tracing
 
 HEADS = ("regressor", "classifier")
 
 
-class StandIn(serve._CallGraph):
-    """A capture on the CPU: the "graph" reruns the captured call on the
-    static input and writes its answers into the static outputs, as a
-    replay rewrites a graph's buffers. ``made`` lists the captures."""
+class StandIn(_build.CallGraph):
+    """A capture on the CPU. ``made`` lists the captures."""
 
     made = []
 
-    def __init__(self, call, X):
-        self.x = X.clone()
-        self.out = call(self.x)
-        self.launches = 1
+    def __init__(self, call, X, warmup=False):
+        super().__init__(call, X, warmup)
+        StandIn.made.append(self)
+
+    @staticmethod
+    def _side_stream(device):
+        return contextlib.nullcontext()
+
+    def _capture(self, call):
+        out = call(self.x)
 
         def replay():
+            before = {name: w.launches for name, w in _build._counted.items()}
             fresh = call(self.x)
-            if isinstance(self.out, tuple):
-                for o, f in zip(self.out, fresh):
-                    o.copy_(f)
-            else:
-                self.out.copy_(fresh)
+            for name, n in before.items():
+                _build._counted[name].launches = n
+            for o, f in zip(out if isinstance(out, tuple) else (out,),
+                            fresh if isinstance(fresh, tuple) else (fresh,)):
+                o.copy_(f)
 
         self.graph = SimpleNamespace(replay=replay)
-        StandIn.made.append(self)
+        return out
 
 
 class Raises:
@@ -123,7 +133,7 @@ def test_a_capture_that_raises_leaves_its_key_eager_and_is_counted():
     before = dict(serve.graph_counts)
     outs = [_run(cache, X) for _ in range(4)]
     assert _delta(before) == {"captures": 0, "replays": 0, "eager": 4, "fallbacks": 1}
-    assert not cache.graphs and len(cache.eager) == 1
+    assert not cache.graphs and list(cache.states.values()) == [serve._EAGER]
     assert all(torch.equal(o[0], 2.0 * X) for o in outs)
 
 
@@ -149,7 +159,7 @@ def test_cpu_tensors_are_never_captured():
     before = dict(serve.graph_counts)
     for _ in range(3):
         _run(cache, X)
-    assert not StandIn.made and not cache.graphs and not cache.warm
+    assert not StandIn.made and not cache.states
     assert _delta(before) == {"captures": 0, "replays": 0, "eager": 0, "fallbacks": 0}
 
 
@@ -157,7 +167,7 @@ def test_calls_with_gradients_on_are_not_graphed():
     cache, X = _cache(), torch.randn(5, 3)
     for _ in range(3):
         cache(_double, _double, X)
-    assert not StandIn.made and not cache.warm
+    assert not StandIn.made and not cache.states
 
 
 def test_returned_outputs_never_share_storage_across_calls():
@@ -172,20 +182,107 @@ def test_returned_outputs_never_share_storage_across_calls():
         assert torch.equal(out[0], 2.0 * X) and torch.equal(out[1], X + 1.0)
 
 
-def test_a_replay_adds_its_captured_launches_and_records_its_spans():
-    cache, X = _cache(), torch.randn(5, 3)
-    _run(cache, X)
-    launches = se_gram_cuda.launches
-    tracing.start()
-    try:
-        _run(cache, X)
-        _run(cache, X)
-    finally:
-        tracing.stop()
-    assert se_gram_cuda.launches == launches + 2
+@pytest.fixture
+def kernels(monkeypatch):
+    """Two stand-in kernels registered as the library's are: each call
+    counts one launch, as a wrapper counts an eager launch."""
+    monkeypatch.setattr(_build, "_counted", {})
+
+    def gram(x):
+        gram.launches += 1
+        return 2.0 * x
+
+    def variance(x):
+        variance.launches += 1
+        return x + 1.0
+
+    for name, wrapper in (("gram", gram), ("variance", variance)):
+        _build.EntryPoint(name, [], wrapper, ("max", 1))
+    return gram, variance
+
+
+def _two_kernels(kernels):
+    gram, variance = kernels
+
+    def call(x):
+        return gram(x), variance(variance(x))
+
+    return call
+
+
+def _launched(kernels):
+    return [k.launches for k in kernels]
+
+
+def test_a_replay_adds_its_captured_launches_and_records_its_spans(kernels):
+    """Through the cache: the eager call counts its launches, the capture
+    adds nothing, each replay adds what its capture queued, kernel by
+    kernel, and its ``serve.replay`` span carries those counts."""
+    cache, X, call = _cache(), torch.randn(5, 3), _two_kernels(kernels)
+    assert _launched(kernels) == [0, 0]
+    with torch.no_grad():
+        cache(call, call, X)
+        assert _launched(kernels) == [1, 2]
+        gc.disable()  # a collection would record a python.gc span among them
+        tracing.start()
+        try:
+            outs = [cache(call, call, X) for _ in range(3)]
+        finally:
+            tracing.stop()
+            gc.enable()
+    assert _launched(kernels) == [1 + 3, 2 + 6]
+    (graph,) = cache.graphs.values()
+    assert graph.launches == {"gram": 1, "variance": 2}
     names = [(s.name, s.attrs) for s in tracing.spans()]
-    assert names == [("serve.capture", None), ("serve.replay", {"launches": 1}),
-                     ("serve.replay", {"launches": 1})]
+    want = {"launches": {"gram": 1, "variance": 2}}
+    assert names == [("serve.capture", None)] + [("serve.replay", want)] * 3
+    assert all(torch.equal(o[1], (X + 1.0) + 1.0) for o in outs)
+
+
+@pytest.mark.parametrize("warmup", [False, True])
+def test_the_capture_helper_counts_what_ran(kernels, warmup):
+    """``CallGraph`` alone: a warm-up counts its launches once, the capture
+    none; each of two replays adds its kernels' captured launches; a kernel
+    the call does not reach is not in ``launches``."""
+    gram, variance = kernels
+    X = torch.randn(4, 2)
+    graph = StandIn(gram, X, warmup=warmup)
+    assert _launched(kernels) == [int(warmup), 0]
+    assert graph.launches == {"gram": 1}
+    for k in (1, 2):
+        assert torch.equal(graph(X + k), 2.0 * (X + k))
+        assert _launched(kernels) == [int(warmup) + k, 0]
+
+
+def test_a_capture_that_raises_restores_the_counters(kernels):
+    """A capture cut short by an error leaves every counter as it was before
+    the capture, whatever it queued."""
+    gram, _ = kernels
+
+    def fails(x):
+        gram(x)
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    with pytest.raises(RuntimeError):
+        StandIn(fails, torch.randn(3, 2))
+    assert _launched(kernels) == [0, 0]
+
+
+def test_many_keys_keep_the_cache_bounded():
+    """However many call shapes pass through, the cache remembers at most
+    ``CACHE_KEYS`` keys and holds at most ``GRAPH_SLOTS`` graphs; the most
+    recently used keys stay."""
+    cache = _cache()
+    n = 3 * serve.CACHE_KEYS
+    for rows in range(1, n + 1):
+        X = torch.randn(rows, 2)
+        for _ in range(3):
+            _run(cache, X)
+        assert len(cache.states) <= serve.CACHE_KEYS
+        assert len(cache.graphs) <= serve.GRAPH_SLOTS
+    assert len(cache.states) == serve.CACHE_KEYS
+    assert [key[1] for key in cache.graphs] == [(r, 2) for r in range(n - 3, n + 1)]
+    assert [key[1] for key in cache.states][0] == (n - serve.CACHE_KEYS + 1, 2)
 
 
 def _handle(head):
@@ -219,7 +316,7 @@ def _flat(out):
 def test_a_handle_keeps_its_cpu_calls_eager(head):
     h, fn, X = _handle(head)
     outs = [_flat(fn(X)) for _ in range(3)]
-    assert not h._graphs.warm and not h._graphs.graphs
+    assert not h._graphs.states
     assert all(torch.equal(o, outs[0]) for o in outs)
 
 

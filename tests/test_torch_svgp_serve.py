@@ -188,7 +188,7 @@ def test_the_handle_through_the_stand_in_capture_answers_as_eagerly(monkeypatch)
     finally:
         serve.graph_counts.update(before)
     fresh = dataclasses.replace(h)
-    assert fresh._graphs is not h._graphs and not fresh._graphs.warm
+    assert fresh._graphs is not h._graphs and not fresh._graphs.states
 
 
 def test_spans_of_set_up_and_of_a_call():
@@ -369,22 +369,20 @@ def test_the_plain_route_keeps_todays_answers_and_spans(dtype, grad, m_inducing)
 
 
 def test_the_kernel_wrapper_takes_the_plain_version_for_cpu_tensors_only():
-    """``svgp_var_cuda`` on CPU tensors is ``svgp_var_reference`` bit for
-    bit and launches nothing; on a device with no kernel it raises rather
-    than falling back."""
+    """``svgp_var_cuda`` gives the kernel or an error: on CPU tensors, as on
+    a device with no kernel, it raises before a launch rather than falling
+    back (``svgp_var_route`` sends such calls to the plain version before
+    the call)."""
     g = torch.Generator().manual_seed(14)
     Kux = torch.rand(M, 300, generator=g)
     Lu = torch.tril(torch.rand(M, M, generator=g)) + M * torch.eye(M)
     A = torch.tril(torch.rand(M, M, generator=g))
     m, kxx = torch.randn(M, generator=g), torch.full((300,), 2.0)
     launches = svgp_var.svgp_var_cuda.launches
-    got = svgp_var.svgp_var_cuda(Kux, Lu, A, m, kxx)
-    want = svgp_var.svgp_var_reference(Kux, Lu, A, m, kxx)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match=f"no kernel for device {device}"):
+            svgp_var.svgp_var_cuda(*(t.to(device) for t in (Kux, Lu, A, m, kxx)))
     assert svgp_var.svgp_var_cuda.launches == launches
-    meta = [t.to("meta") for t in (Kux, Lu, A, m, kxx)]
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        svgp_var.svgp_var_cuda(*meta)
 
 
 def _wrapper_inputs(Mi=M, Bi=100, dtype=F32):

@@ -338,14 +338,15 @@ def test_idle_gaps_go_to_the_innermost_span_and_launches_are_counted():
         "se_gram.launch": 0.001, "serve.matvec": 0.0015})
     assert serve_spans.launches(trace, scaled) == {
         "launch_spans": 1, "replay_spans": 0, "replayed_launches": 0, "launches": 1,
-        "kernel_records": 1, "variance_kernel_records": 0}
+        "kernel_records": 1, "svgp_var_launches": 0, "variance_kernel_records": 0}
 
 
 def test_replayed_calls_count_their_captured_launches_and_a_capture_none():
-    """In the sub-window [1, 10] s: an eager call's launch span, a capture
-    (its launch queued nothing) and two replays whose graph holds one Gram;
-    a replay after the sub-window is left out. The SVGP variance kernel's
-    records (one a call, replays included) are counted beside them."""
+    """In the sub-window [1, 10] s: an eager call's launch spans, a capture
+    (its launches queued nothing) and two replays whose graph holds one Gram
+    and one SVGP variance kernel; a replay after the sub-window is left out.
+    Each kernel's launches (the eager call's span and one a replay) equal
+    its records in the trace."""
     from portbench.trace import Trace
 
     def span(name, t, parent=None, attrs=None):
@@ -353,19 +354,21 @@ def test_replayed_calls_count_their_captured_launches_and_a_capture_none():
         s.end_ns = s.start_ns + 1000
         return s
 
-    program = [span("serve.predict", 2), span("se_gram.launch", 2, 0),
-               span("serve.predict", 3), span("serve.capture", 3, 2),
-               span("se_gram.dispatch", 3, 3), span("se_gram.launch", 3, 4),
-               span("serve.replay", 3.5, 2, {"launches": 1}),
-               span("serve.predict", 4), span("serve.replay", 4, 7, {"launches": 1}),
-               span("serve.replay", 11, None, {"launches": 1})]
+    replayed = {"launches": {"se_gram_cuda": 1, "svgp_var_cuda": 1}}
+    program = [span("serve.predict", 2), span("se_gram.launch", 2, 0), span("svgp.fused", 2, 0),
+               span("serve.predict", 3), span("serve.capture", 3, 3),
+               span("se_gram.dispatch", 3, 4), span("se_gram.launch", 3, 5),
+               span("svgp.fused", 3, 4),
+               span("serve.replay", 3.5, 3, replayed),
+               span("serve.predict", 4), span("serve.replay", 4, 9, replayed),
+               span("serve.replay", 11, None, replayed)]
     kernels = [("se_gram_kernel", t, t + 0.1) for t in (2, 3.5, 4)]
     kernels += [("void (anonymous namespace)::svgp_var_kernel<64>(float const*)", t + 0.1,
                  t + 0.3) for t in (2, 3.5, 4)]
     trace = Trace((1.0, 10.0), kernels, [])
     assert serve_spans.launches(trace, program) == {
         "launch_spans": 1, "replay_spans": 2, "replayed_launches": 2, "launches": 3,
-        "kernel_records": 3, "variance_kernel_records": 3}
+        "kernel_records": 3, "svgp_var_launches": 3, "variance_kernel_records": 3}
 
 
 def test_engagement_reads_the_graph_counters_since_a_start():

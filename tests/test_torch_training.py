@@ -238,10 +238,10 @@ def _port_trace(f, x0, steps=60):
     state = tt._lbfgs_init(x)
     with torch.no_grad():
         for _ in range(steps):
-            v, g = tt._value_and_grad(f, x, None)
+            v, g = tt._value_and_grad(f, x)
             precond, state = tt._lbfgs_update(g, state, x)
             counts = {}
-            step = tt.zoom_linesearch(lambda z: tt._value_and_grad(f, z, None), x, -precond,
+            step = tt.zoom_linesearch(lambda z: tt._value_and_grad(f, z), x, -precond,
                                       v, g, counts)
             x_new = x + step * (-precond)
             x = torch.where(torch.all(torch.isfinite(x_new)), x_new, x)
